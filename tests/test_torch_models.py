@@ -1,0 +1,146 @@
+"""PyTorch port vs the JAX package at the tiny config: encoder logits and
+latent, SCCN, decoder, and the full eval ``__call__``.
+
+One jitted JAX forward, with the intermediates captured, serves every
+test; the port runs the same converted parameters on the same clips.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_parity import TINY, WAVE_SEED, flax_params, margin_mask, port_model, waveforms
+
+from topo_audio_autoencoder_torch.topology import RectifiedProbs, build_operators
+from topo_audio_autoencoder_tpu.models import AudioAutoencoder as JaxAutoencoder
+
+torch.set_num_threads(1)
+
+# fp32 in both packages. The JAX side runs XLA's fused CPU kernels, the
+# port PyTorch's; they sum in different orders, so logits differ by ~2e-6
+# and waveforms by ~6e-6 at this config (measured). The tolerances leave
+# a decade of room.
+LOGIT_ATOL = 2e-5
+FEATURE_ATOL = 5e-5
+WAVE_ATOL = 1e-4
+# A latent bit is compared where its biased logit is this far from 0.5,
+# a hundred times the logit tolerance.
+MARGIN = 2e-3
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    return JaxAutoencoder.create(**TINY)
+
+
+@pytest.fixture(scope="module")
+def params(jax_model):
+    return flax_params(jax_model)
+
+
+@pytest.fixture(scope="module")
+def setup(jax_model, params):
+    jm = jax_model
+    x = waveforms(WAVE_SEED, 2)
+    names = {"compute_logits", "__call__"}
+    fwd = jax.jit(
+        lambda p, x: jm.apply(
+            p, x, 1.0, None, False,
+            capture_intermediates=lambda mdl, name: name in names,
+        )
+    )
+    out, state = fwd(params, jnp.asarray(x))
+    with torch.no_grad():
+        pm = port_model(params)
+        port_out = pm(torch.from_numpy(x))
+    return jm, pm, x, out, state["intermediates"], port_out
+
+
+def test_encoder_logits_and_latent_match(setup):
+    jm, pm, x, out, inter, port_out = setup
+    logits = np.asarray(inter["encoder"]["compute_logits"][0])
+    np.testing.assert_allclose(port_out.encoder_output.logits.numpy(), logits, atol=LOGIT_ATOL)
+    safe = margin_mask(logits, jm.tables.num_vertices, MARGIN)
+    assert safe.mean() > 0.9, "the parity seed leaves too many near-threshold logits"
+    for r, (got, want) in enumerate(zip(port_out.encoder_output.probs.ranks, out.encoder_output.probs)):
+        sl = slice(jm.tables.offsets[r], jm.tables.offsets[r] + jm.tables.sizes[r])
+        np.testing.assert_array_equal(got.numpy()[safe[:, sl]], np.asarray(want)[safe[:, sl]])
+    # The parity latent exercises every rank.
+    assert [int(p.sum()) for p in port_out.encoder_output.probs.ranks] == [10, 18, 11, 2]
+
+
+def _port_inputs_from_jax_latent(pm, out):
+    """Embeddings, operators and masks rebuilt by the port from the JAX
+    encoder's latent: the SCCN and decoder then see the same inputs."""
+    rect = RectifiedProbs(*(torch.from_numpy(np.array(p)) for p in out.encoder_output.rectified))
+    masks = tuple((p > 0).to(p.dtype) for p in rect.ranks)
+    ops = build_operators(rect, pm.tables, masks=masks)
+    return pm.encoder.embed(rect), ops, masks
+
+
+def test_embeddings_match(setup):
+    jm, pm, x, out, inter, port_out = setup
+    with torch.no_grad():
+        emb, _, _ = _port_inputs_from_jax_latent(pm, out)
+    for got, want in zip(emb, out.encoder_output.embeddings):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FEATURE_ATOL)
+
+
+def test_sccn_matches_jax(setup):
+    jm, pm, x, out, inter, port_out = setup
+    with torch.no_grad():
+        emb, ops, _ = _port_inputs_from_jax_latent(pm, out)
+        feats = pm.decoder.sccn(list(emb), ops, train=False)
+    want = inter["decoder"]["sccn"]["__call__"][0]
+    for got, w in zip(feats, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+
+
+def test_sccn_layer_train_mode_matches_jax(setup, params):
+    """A non-final layer applies its LayerNorm (flax eps 1e-6) in training."""
+    from topo_audio_autoencoder_tpu.models.sccn import GradientSCCNLayer as JaxLayer
+
+    jm, pm, x, out, inter, port_out = setup
+    with torch.no_grad():
+        emb, ops, _ = _port_inputs_from_jax_latent(pm, out)
+        got = pm.decoder.sccn.layer_0(list(emb), ops, train=True)
+    layer = JaxLayer(channels=TINY["sccn_hidden_dim"])
+    p0 = {"params": params["params"]["decoder"]["sccn"]["layer_0"]}
+    want = jax.jit(lambda p, f, o: layer.apply(p, f, o, True))(
+        p0, list(out.encoder_output.embeddings), out.encoder_output.ops
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+
+
+def test_decoder_matches_jax(setup):
+    jm, pm, x, out, inter, port_out = setup
+    with torch.no_grad():
+        emb, ops, masks = _port_inputs_from_jax_latent(pm, out)
+        sub = pm.decoder(emb, ops, masks, x.shape[-1] // jm.num_bands)
+    want = np.asarray(inter["decoder"]["__call__"][0])
+    assert sub.shape == want.shape == (2, x.shape[-1] // jm.num_bands, jm.num_bands)
+    np.testing.assert_allclose(sub.numpy(), want, atol=FEATURE_ATOL)
+
+
+def test_forward_waveform_and_aux_match(setup):
+    jm, pm, x, out, inter, port_out = setup
+    assert port_out.waveform.shape == (2, 1, x.shape[-1])
+    np.testing.assert_allclose(port_out.waveform.numpy(), np.asarray(out.waveform), atol=WAVE_ATOL)
+    np.testing.assert_array_equal(port_out.valid.numpy(), np.asarray(out.valid))
+    assert port_out.aux.keys() == out.aux.keys()
+    for key in out.aux:
+        np.testing.assert_allclose(port_out.aux[key].numpy(), np.asarray(out.aux[key]), atol=1e-6)
+
+
+def test_geometry_and_param_count_match(setup, params):
+    jm, pm, x, out, inter, port_out = setup
+    assert pm.geometry() == jm.geometry()
+    assert pm.num_params() == jm.num_params(params)
+
+
+def test_train_mode_is_not_ported(setup):
+    jm, pm, x, out, inter, port_out = setup
+    with pytest.raises(NotImplementedError, match="training slice"):
+        pm(torch.from_numpy(x), train=True)

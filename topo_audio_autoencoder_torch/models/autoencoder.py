@@ -1,0 +1,180 @@
+"""Autoencoder facade: PQMF -> encoder -> complex -> decoder -> PQMF^-1.
+
+Port of ``topo_audio_autoencoder_tpu.models.autoencoder`` for the eval path
+(``train=False``): the binary Gumbel sampler thresholded at 0.5, the dense
+masked-static operators, fp32. Waveforms are NCW ``[B, 1, T]`` at the
+facade; internals are channels-last.
+
+``AudioAutoencoder.create`` builds the model on ``cuda`` unless the caller
+passes ``device="cpu"``, and raises when no card is present and none was
+asked for.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..ops.pqmf import PQMF
+from ..topology.builder import build_operators
+from ..topology.complexes import ComplexTables, build_tables
+from ..topology.rectifier import RectifiedProbs, enforce_constraints
+from .decoder import AudioDecoder
+from .encoder import (
+    AudioEncoder,
+    EncoderOutput,
+    rank_diversity_entropy,
+    vertex_count_penalty,
+)
+
+DEFAULT_SEED = 511990
+
+
+class AutoencoderOutput(NamedTuple):
+    waveform: torch.Tensor  # [B, 1, T] reconstruction
+    aux: dict  # {'binary_entropy': [B], 'diversity': [B], 'l0': [B]}
+    valid: torch.Tensor  # [B] bool
+    encoder_output: EncoderOutput
+
+
+def _eval_only(train: bool) -> None:
+    if train:
+        raise NotImplementedError(
+            "train=True belongs to the training slice of the PyTorch port; "
+            "this slice runs the eval path only"
+        )
+
+
+class AudioAutoencoder(nn.Module):
+    """Full model, eval path."""
+
+    def __init__(
+        self,
+        tables: ComplexTables,
+        num_bands: int = 16,
+        sccn_hidden_dim: int = 64,
+        min_active_vertices: int = 8,
+        max_active_vertices: int = 20,
+        n_sccn_layers: int = 6,
+        pqmf_attenuation: float = 100.0,
+        num_samples: int = 64000,
+    ):
+        super().__init__()
+        self.tables = tables
+        self.num_bands = num_bands
+        self.sccn_hidden_dim = sccn_hidden_dim
+        self.min_active_vertices = min_active_vertices
+        self.max_active_vertices = max_active_vertices
+        self.n_sccn_layers = n_sccn_layers
+        self.num_samples = num_samples
+        self.pqmf = PQMF(attenuation=pqmf_attenuation, n_band=num_bands)
+        self.encoder = AudioEncoder(tables, num_bands, sccn_hidden_dim, num_samples)
+        self.decoder = AudioDecoder(
+            sccn_hidden_dim=sccn_hidden_dim,
+            initial_sequence_length=250,
+            output_channels=num_bands,
+            n_sccn_layers=n_sccn_layers,
+        )
+
+    @classmethod
+    def create(
+        cls,
+        num_vertices: int = 20,
+        num_bands: int = 16,
+        sccn_hidden_dim: int = 64,
+        min_active_vertices: int = 8,
+        max_active_vertices: int = 20,
+        n_sccn_layers: int = 6,
+        pqmf_attenuation: float = 100.0,
+        num_samples: int = 64000,
+        seed: int = DEFAULT_SEED,
+        device=None,
+    ) -> "AudioAutoencoder":
+        """Build tables, filterbank and seeded weights, on ``device``
+        (default ``cuda``). ``num_samples`` is the clip length the encoder's
+        MLP is sized for (flax infers it from the first call)."""
+        device = resolve_device(device)
+        model = cls(
+            tables=build_tables(num_vertices),
+            num_bands=num_bands,
+            sccn_hidden_dim=sccn_hidden_dim,
+            min_active_vertices=min_active_vertices,
+            max_active_vertices=max_active_vertices,
+            n_sccn_layers=n_sccn_layers,
+            pqmf_attenuation=pqmf_attenuation,
+            num_samples=num_samples,
+        )
+        model.reset_parameters(seed)
+        return model.to(device).eval()
+
+    def reset_parameters(self, seed: int = DEFAULT_SEED) -> None:
+        """Fresh weights from ``seed`` in the flax init families (drawn on
+        the CPU, so a seed gives the same weights on every device)."""
+        generator = torch.Generator(device="cpu").manual_seed(seed)
+        device = next(self.parameters()).device
+        self.to("cpu")
+        self.encoder.reset_parameters(generator)
+        self.decoder.reset_parameters(generator)
+        self.to(device)
+
+    def encode(self, x: torch.Tensor, temperature=1.0, train: bool = False) -> EncoderOutput:
+        """[B, 1, T] -> EncoderOutput."""
+        _eval_only(train)
+        bands = self.pqmf(x)  # [B, M, T/M]
+        return self.encoder(bands.transpose(-1, -2), temperature, train)
+
+    def decode(
+        self, enc: EncoderOutput, desired_length: int | None = None, train: bool = False
+    ) -> torch.Tensor:
+        """EncoderOutput -> [B, 1, T]. ``desired_length`` is the per-band
+        (post-PQMF) length."""
+        _eval_only(train)
+        sub = self.decoder(enc.embeddings, enc.ops, enc.masks, desired_length, train)
+        return self.pqmf.inverse(sub.transpose(-1, -2))
+
+    def decode_from_probs(
+        self, probs: RectifiedProbs, desired_length: int | None = None, train: bool = False
+    ) -> torch.Tensor:
+        """Decode straight from a per-rank probability latent: embeddings and
+        operators are rebuilt from the latent alone. The latent is
+        re-rectified first (idempotent on valid latents)."""
+        _eval_only(train)
+        rect = enforce_constraints(*probs.ranks, self.tables)
+        masks = tuple((p > 0).to(p.dtype) for p in rect.ranks)
+        ops = build_operators(rect, self.tables, masks=masks)
+        sub = self.decoder(self.encoder.embed(rect), ops, masks, desired_length, train)
+        return self.pqmf.inverse(sub.transpose(-1, -2))
+
+    def geometry(self) -> dict:
+        """Architecture facts a checkpoint consumer needs to rebuild the model."""
+        return {
+            "vertices": self.tables.num_vertices,
+            "bands": self.num_bands,
+            "hidden": self.sccn_hidden_dim,
+            "layers": self.n_sccn_layers,
+            "sampler": "gumbel",
+            "hard": False,
+            "learned_hc": False,
+            "min_active_vertices": self.min_active_vertices,
+            "max_active_vertices": self.max_active_vertices,
+            "pack_capacities": None,
+        }
+
+    def forward(self, x: torch.Tensor, temperature=1.0, train: bool = False) -> AutoencoderOutput:
+        enc = self.encode(x, temperature, train)
+        wav = self.decode(enc, x.shape[-1] // self.num_bands, train)
+        aux = {
+            "binary_entropy": rank_diversity_entropy(enc.rectified),
+            "diversity": vertex_count_penalty(
+                enc.rectified.vertices, self.min_active_vertices, self.max_active_vertices
+            ),
+            "l0": enc.l0,
+        }
+        return AutoencoderOutput(waveform=wav, aux=aux, valid=enc.valid, encoder_output=enc)
+
+    def num_params(self) -> int:
+        """Total parameter count."""
+        return sum(p.numel() for p in self.parameters())
