@@ -68,12 +68,13 @@ def flax_params(jax_model, seed: int = SEED, num_samples: int = T,
     return params
 
 
-def port_model(params: dict, num_samples: int = T):
-    """The port's tiny model on the CPU, loaded with the converted tree."""
+def port_model(params: dict, num_samples: int = T, **options):
+    """The port's tiny model on the CPU, loaded with the converted tree.
+    ``options`` go to ``AudioAutoencoder.create`` (e.g. ``dropout``)."""
     from topo_audio_autoencoder_torch.convert import state_dict_from_flax
     from topo_audio_autoencoder_torch.models import AudioAutoencoder
 
-    model = AudioAutoencoder.create(**TINY, num_samples=num_samples, device="cpu")
+    model = AudioAutoencoder.create(**TINY, num_samples=num_samples, device="cpu", **options)
     model.load_state_dict(state_dict_from_flax(params, model.state_dict()))
     return model
 

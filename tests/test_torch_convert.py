@@ -83,3 +83,22 @@ def test_unfilled_parameter_raises(trees):
     del bad["params"]["encoder"]["embed_norm2"]
     with pytest.raises(KeyError, match="embed_norm2"):
         state_dict_from_flax(bad, model.state_dict())
+
+
+def test_a_jax_train_state_converts():
+    """The parameters of a JAX TrainState (create_train_state) load into a
+    port model of the same geometry; optimizer state starts fresh."""
+    import jax
+
+    from topo_audio_autoencoder_tpu.training import create_train_state, make_optimizer
+
+    jm = JaxAutoencoder.create(**TINY)
+    state = create_train_state(jm, make_optimizer(), jax.random.PRNGKey(0), (1, 1, 1024))
+    params = jax.tree.map(np.asarray, state.params)
+    model = TorchAutoencoder.create(**TINY, num_samples=1024, device="cpu")
+    sd = state_dict_from_flax(params, model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    assert sd["encoder.skip_weight"].shape == ()  # scalars keep their shape
+    np.testing.assert_array_equal(
+        model.encoder.mlp0.weight.detach().numpy(), params["params"]["encoder"]["mlp0"]["kernel"].T
+    )

@@ -3,14 +3,14 @@ card. Without a CUDA card every test here skips (the CPU has no kernel to
 run: the wrappers take the plain version for CPU tensors, which the other
 test_torch_* files hold against the JAX package).
 
-Run on the card with ``python -m pytest tests/test_torch_kernels.py -q``.
+Run on the card with ``python -m pytest --noconftest tests/test_torch_kernels.py -q``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from topo_audio_autoencoder_torch.ops import attention
+from topo_audio_autoencoder_torch.ops import attention, fused_samplers
 
 torch.set_num_threads(1)
 
@@ -29,13 +29,14 @@ def cuda():
 # fp32: both sides compute in fp32 and differ only in summation order.
 # bf16: both round the fp32 output to bf16 once; one bf16 ulp at |o| <= 4.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+SHAPES = [(3, 20, 200, 8, 2), (4, 250, 1000, 64, 4)]
+SHAPE_IDS = ["small", "d16"]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(3, 20, 200, 8, 2), (4, 250, 1000, 64, 4)], ids=["small", "d16"])
-def test_attention_kernel_matches_plain(cuda, dtype, shape):
+def _attn_inputs(cuda, dtype, shape, seed=0):
+    """About 40% active keys; element 0 fully masked, element 1 a single key."""
     b, q, m, c, h = shape
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     query, keys, values = (
         torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
         for s in ((b, q, c), (b, m, c), (b, m, c))
@@ -44,6 +45,15 @@ def test_attention_kernel_matches_plain(cuda, dtype, shape):
     mask[0] = 0.0
     mask[1] = 0.0
     mask[1, m // 3] = 1.0
+    dout = torch.from_numpy(rng.standard_normal((b, q, c)).astype(np.float32)).to(cuda, dtype)
+    return query, keys, values, mask, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_attention_kernel_matches_plain(cuda, dtype, shape):
+    h = shape[-1]
+    query, keys, values, mask, _ = _attn_inputs(cuda, dtype, shape)
     before = attention.attention_fwd.launches
     out, lse = attention.attention_fwd(query, keys, values, mask, h)
     torch.cuda.synchronize()
@@ -56,8 +66,100 @@ def test_attention_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(lse[1:], want_lse[1:], rtol=1e-5, atol=1e-5)
 
 
-def test_attention_kernel_refuses_gradients(cuda):
-    q = torch.zeros(1, 4, 8, device=cuda, requires_grad=True)
-    k = torch.zeros(1, 5, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        attention.fused_masked_attention(q, k, k, torch.ones(1, 5, device=cuda), 2)
+# Gradients: fp32 sums of up to M terms in another order, relative to the
+# gradient's scale (1e-4 of its largest element). bf16: the kernel and the
+# plain version round the same fp32 sums to bf16 once; 2^-7 relative.
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_attention_backward_kernel_matches_plain(cuda, dtype, shape):
+    h = shape[-1]
+    query, keys, values, mask, dout = _attn_inputs(cuda, dtype, shape)
+    out, lse = attention.attention_fwd(query, keys, values, mask, h)
+    before = attention.attention_bwd.launches
+    got = attention.attention_bwd(query, keys, values, mask, out, lse, dout, h)
+    torch.cuda.synchronize()
+    assert attention.attention_bwd.launches == before + 1
+    want = attention.attention_bwd_plain(query, keys, values, mask, out, lse, dout, h)
+    inactive = mask == 0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= GRAD_RTOL[dtype] * scale, (name, err, scale)
+    dq, dk, dv = got
+    assert (dq[0] == 0).all()  # fully masked element
+    assert (dk[inactive] == 0).all() and (dv[inactive] == 0).all()  # masked keys: exact zeros
+    assert (dq[1] == 0).all()  # a single key: ds = p (dp - dp) = 0
+
+
+def test_attention_autograd_goes_through_both_kernels(cuda):
+    shape = (4, 250, 1000, 64, 4)
+    query, keys, values, mask, dout = _attn_inputs(cuda, torch.float32, shape)
+    leaves = [t.clone().requires_grad_(True) for t in (query, keys, values)]
+    f0, b0 = attention.attention_fwd.launches, attention.attention_bwd.launches
+    out = attention.fused_masked_attention(*leaves, mask, shape[-1])
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert attention.attention_fwd.launches == f0 + 1
+    assert attention.attention_bwd.launches == b0 + 1
+    _, lse = attention.attention_fwd_plain(query, keys, values, mask, shape[-1])
+    plain_out = attention.attention_fwd_plain(query, keys, values, mask, shape[-1])[0]
+    want = attention.attention_bwd_plain(query, keys, values, mask, plain_out, lse, dout, shape[-1])
+    for leaf, w in zip(leaves, want):
+        err = (leaf.grad - w).abs().max().item()
+        assert err <= GRAD_RTOL[torch.float32] * w.abs().max().item(), err
+
+
+# s in [0, 1]: fp32 differs from the plain version by the rounding of log,
+# log1p and exp; bf16 output rounds once (2^-8 is one ulp just below 1).
+SAMPLER_TOL = {torch.float32: 2e-6, torch.bfloat16: 2 ** -8}
+TRAIN_LOGITS = (16, 6195)  # the flagship train step: 16 anchors x 6,195 simplices
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_binary_gumbel_kernel_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(1)
+    logits = torch.from_numpy(rng.normal(0.5, 2.0, TRAIN_LOGITS).astype(np.float32)).to(cuda, dtype)
+    before = fused_samplers.binary_gumbel_sample.launches
+    s, u = fused_samplers.binary_gumbel_sample(logits, 0.7, seed=12345, offset=3, return_noise=True)
+    torch.cuda.synchronize()
+    assert fused_samplers.binary_gumbel_sample.launches == before + 1
+    assert s.dtype == dtype and s.shape == logits.shape and u.dtype == torch.float32
+    # The kernel's generator is the plain Philox stream, bit for bit.
+    want_u = fused_samplers.philox_uniform(logits.numel(), 12345, 3, cuda).reshape(logits.shape)
+    assert torch.equal(u, want_u)
+    want = fused_samplers.binary_gumbel_plain(logits, u, 0.7)
+    assert (s.float() - want.float()).abs().max().item() <= SAMPLER_TOL[dtype]
+    # Injected uniforms take the kernel's other entry point.
+    s2 = fused_samplers.binary_gumbel_sample(logits, 0.7, noise=u)
+    assert (s2.float() - want.float()).abs().max().item() <= SAMPLER_TOL[dtype]
+    # Same (seed, offset) reproduces; another seed or offset differs.
+    again = fused_samplers.binary_gumbel_sample(logits, 0.7, seed=12345, offset=3)
+    assert torch.equal(again, s)
+    assert not torch.equal(fused_samplers.binary_gumbel_sample(logits, 0.7, seed=12346, offset=3), s)
+    assert not torch.equal(fused_samplers.binary_gumbel_sample(logits, 0.7, seed=12345, offset=4), s)
+
+
+def test_binary_gumbel_kernel_uniforms_are_uniform(cuda):
+    """Over 4M draws: mean 0.5 and half below 0.5 within 5 standard errors
+    (the TPU kernel once shipped uniforms skewed into (0, 0.5))."""
+    logits = torch.zeros(4_000_000, device=cuda)
+    _, u = fused_samplers.binary_gumbel_sample(logits, 1.0, seed=99, return_noise=True)
+    n = u.numel()
+    assert abs(u.mean().item() - 0.5) < 5 * (1 / 12) ** 0.5 / n ** 0.5
+    assert abs((u < 0.5).float().mean().item() - 0.5) < 5 * 0.5 / n ** 0.5
+    assert u.min().item() >= np.float32(1e-6) and u.max().item() <= np.float32(1 - 1e-6)
+
+
+def test_binary_gumbel_kernel_gradient(cuda):
+    logits = torch.linspace(-2.0, 2.0, 6195, device=cuda).repeat(16, 1).requires_grad_(True)
+    gen = torch.Generator().manual_seed(5)
+    before = fused_samplers.binary_gumbel_sample.launches
+    s = fused_samplers.binary_gumbel_fused_diff(logits, gen, 0.7)
+    (s ** 2).sum().backward()
+    assert fused_samplers.binary_gumbel_sample.launches == before + 1
+    sd = s.detach()
+    torch.testing.assert_close(logits.grad, 2 * sd * 2 * sd * (1 - sd) / 0.7)

@@ -1,6 +1,8 @@
-"""PyTorch port vs the JAX package: PQMF, eval sampler, SCCN combine and
-the masked attention's plain version (against the JAX reference and the
-Pallas kernel in interpret mode) and its wrapper's CPU behaviour."""
+"""PyTorch port vs the JAX package: PQMF, the samplers (eval and train,
+plain and fused, with the fused sampler's closed-form gradient and its
+Philox generator), SCCN combine, and the masked attention's plain forward
+and backward (against the JAX reference, its VJP and the Pallas kernels in
+interpret mode) and their wrappers' CPU behaviour."""
 
 import jax
 import jax.numpy as jnp
@@ -9,12 +11,16 @@ import pytest
 import torch
 
 from topo_audio_autoencoder_torch.ops import attention as pt_attn
+from topo_audio_autoencoder_torch.ops import fused_samplers as pt_fused
+from topo_audio_autoencoder_torch.ops import samplers as pt_samplers
 from topo_audio_autoencoder_torch.ops.pqmf import PQMF as TorchPQMF
 from topo_audio_autoencoder_torch.ops.samplers import binary_gumbel as pt_binary_gumbel
 from topo_audio_autoencoder_torch.ops.sccn_combine import (
     message_combine_reference as pt_combine,
 )
 from topo_audio_autoencoder_tpu.ops import attention as jax_attn
+from topo_audio_autoencoder_tpu.ops import pallas_kernels as jax_pk
+from topo_audio_autoencoder_tpu.ops import samplers as jax_samplers
 from topo_audio_autoencoder_tpu.ops.pqmf import PQMF as JaxPQMF
 from topo_audio_autoencoder_tpu.ops.samplers import binary_gumbel as jax_binary_gumbel
 from topo_audio_autoencoder_tpu.ops.sccn_combine import (
@@ -155,14 +161,214 @@ def test_message_combine_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+def _jax_uniforms(key, shape):
+    """The uniforms JAX's binary_gumbel draws from ``key`` (float32)."""
+    return np.array(jax.random.uniform(key, shape, jnp.float32, minval=1e-6, maxval=1.0 - 1e-6))
+
+
+# Train-mode relaxation on the same uniforms: fp32 log/log1p/sigmoid in
+# both packages, s in [0, 1].
+SAMPLER_ATOL = 2e-6
+
+
 def test_binary_gumbel_eval_matches_jax_and_train_is_not_ported():
+    """Eval threshold and train relaxation (on JAX's own uniforms) against
+    JAX. The name predates the port of the train branch."""
     logits = np.random.default_rng(5).standard_normal((3, 30)).astype(np.float32)
     logits[0, :3] = (0.5, np.nextafter(np.float32(0.5), np.float32(1)), 0.4999999)
     got = pt_binary_gumbel(torch.from_numpy(logits), None, 1.0, training=False)
     want = jax_binary_gumbel(jnp.asarray(logits), None, 1.0, training=False)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pt_binary_gumbel(torch.from_numpy(logits), torch.Generator(), 1.0, training=True)
+    key = jax.random.PRNGKey(3)
+    u = torch.from_numpy(_jax_uniforms(key, logits.shape))
+    for temp in (0.3, 1.0, 5.0):
+        want = np.asarray(jax_binary_gumbel(jnp.asarray(logits), key, temp, training=True))
+        got = pt_binary_gumbel(torch.from_numpy(logits), None, temp, training=True, noise=u)
+        np.testing.assert_allclose(got.numpy(), want, atol=SAMPLER_ATOL)
+        fused = pt_fused.binary_gumbel_fused(torch.from_numpy(logits), None, temp, noise=u)
+        np.testing.assert_allclose(fused.numpy(), want, atol=SAMPLER_ATOL)
+    with pytest.raises(ValueError, match="generator or noise"):
+        pt_binary_gumbel(torch.from_numpy(logits), None, 1.0, training=True)
+
+
+def test_binary_gumbel_keeps_the_logits_dtype():
+    """A float temperature must not promote a bf16 relaxation to fp32."""
+    logits = torch.zeros(4, 7, dtype=torch.bfloat16)
+    u = torch.full((4, 7), 0.3)
+    assert pt_binary_gumbel(logits, None, torch.tensor(0.7), noise=u).dtype == torch.bfloat16
+    assert pt_fused.binary_gumbel_fused(logits, None, 0.7, noise=u).dtype == torch.bfloat16
+
+
+def test_fused_sampler_gradient_matches_jax():
+    """The closed-form backward (ds/dl = 2 s (1 - s) / T) against jax.grad
+    of binary_gumbel_fused_diff on the same uniforms (tests/test_ops.py's
+    construction)."""
+    key = jax.random.PRNGKey(0)
+    x = np.linspace(-2.0, 2.0, 64, dtype=np.float32)
+    want = np.asarray(jax.grad(
+        lambda l: (jax_pk.binary_gumbel_fused_diff(l, key, 0.7, True) ** 2).sum()
+    )(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    u = torch.from_numpy(_jax_uniforms(key, x.shape))
+    (pt_fused.binary_gumbel_fused_diff(xt, None, 0.7, noise=u) ** 2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, atol=1e-6)
+    # ...which is autograd of the plain relaxation.
+    xp = torch.from_numpy(x).requires_grad_(True)
+    (pt_binary_gumbel(xp, None, 0.7, noise=u) ** 2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), xp.grad.numpy(), atol=1e-6)
+    # Eval mode is a threshold with no gradient.
+    ev = pt_fused.binary_gumbel_fused_diff(torch.from_numpy(x), None, 0.7, training=False)
+    np.testing.assert_array_equal(ev.numpy(), (x > 0.5).astype(np.float32))
+
+
+def test_philox_matches_known_answers():
+    """Philox4x32-10 known-answer vectors (Salmon et al., Random123 kat_vectors):
+    counter 0 / key 0, and all-ones counter and key."""
+    def words(seed, ctr):
+        g = ctr[0] | (ctr[1] << 32)
+        u = pt_fused.philox_uniform(4 * (g + 1), seed, ctr[2] | (ctr[3] << 32))[4 * g:]
+        return [int(x * 2**24) for x in u.tolist()]
+
+    def top24(ws):
+        return [w >> 8 for w in ws]
+
+    assert words(0, (0, 0, 0, 0)) == top24([0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8])
+    # The all-ones counter needs g = 2^64 - 1: check the block function via
+    # the mixing helpers on that counter directly.
+    m = 0xFFFFFFFF
+    c = [torch.tensor([m]) for _ in range(4)]
+    k0 = k1 = m
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + pt_fused._PHILOX_W[0]) & m, (k1 + pt_fused._PHILOX_W[1]) & m
+        hi0, lo0 = pt_fused._mulhilo(pt_fused._PHILOX_M[0], c[0])
+        hi1, lo1 = pt_fused._mulhilo(pt_fused._PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    assert [int(x) for x in c] == [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD]
+
+
+def test_philox_uniform_statistics():
+    """Over 1M draws: mean 0.5 and half below 0.5 within 5 standard errors,
+    all inside [1e-6, 1 - 1e-6] (the TPU kernel's sign-extension skew put
+    every draw below 0.5)."""
+    u = pt_fused.philox_uniform(1 << 20, seed=2024)
+    n = u.numel()
+    assert abs(u.mean().item() - 0.5) < 5 * (1 / 12) ** 0.5 / n ** 0.5
+    assert abs((u < 0.5).float().mean().item() - 0.5) < 5 * 0.5 / n ** 0.5
+    assert u.min().item() >= np.float32(1e-6) and u.max().item() <= np.float32(1 - 1e-6)
+    # The relaxation at l = 0.5, T = 1 is sigmoid(logistic): mean 0.5.
+    s = pt_fused.binary_gumbel_sample(torch.full((n,), 0.5), 1.0, seed=2024)
+    assert abs(s.mean().item() - 0.5) < 0.005
+    # Low temperature saturates towards the thresholded value.
+    s = pt_fused.binary_gumbel_sample(torch.full((1000,), 3.0), 0.01, seed=1)
+    assert s.mean().item() > 0.95
+
+
+def test_fused_sampler_wrapper_on_cpu():
+    logits = torch.from_numpy(np.random.default_rng(2).standard_normal((4, 37)).astype(np.float32))
+    before = pt_fused.binary_gumbel_sample.launches
+    s, u = pt_fused.binary_gumbel_sample(logits, 0.7, seed=9, offset=2, return_noise=True)
+    assert pt_fused.binary_gumbel_sample.launches == before  # no kernel on the CPU
+    torch.testing.assert_close(u.reshape(-1), pt_fused.philox_uniform(148, 9, 2), rtol=0, atol=0)
+    torch.testing.assert_close(s, pt_fused.binary_gumbel_plain(logits, u, 0.7), rtol=0, atol=0)
+    assert torch.equal(pt_fused.binary_gumbel_sample(logits, 0.7, seed=9, offset=2), s)
+    assert not torch.equal(pt_fused.binary_gumbel_sample(logits, 0.7, seed=10, offset=2), s)
+    # A generator gives the seed: the same generator state, the same sample.
+    g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    assert torch.equal(pt_fused.binary_gumbel_fused(logits, g1, 0.7), pt_fused.binary_gumbel_fused(logits, g2, 0.7))
+    with pytest.raises(ValueError, match="positive"):
+        pt_fused.binary_gumbel_sample(logits, 0.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pt_fused.binary_gumbel_sample(logits.to("meta"), 1.0)
+
+
+def test_temperature_schedule_and_straight_through_match_jax():
+    for epoch in (0, 1, 13, 1000):
+        assert float(pt_samplers.temperature_schedule(epoch)) == float(jax_samplers.temperature_schedule(epoch))
+    x = torch.tensor([0.3, -0.2], requires_grad=True)
+    soft = torch.sigmoid(x)
+    y = pt_samplers.straight_through((soft > 0.5).to(x.dtype), soft)
+    y.sum().backward()
+    assert float(y.detach().sum()) == 1.0
+    np.testing.assert_allclose(x.grad.numpy(), (soft * (1 - soft)).detach().numpy(), rtol=1e-6)
+
+
+def _attn_bwd_inputs():
+    q, k, v, mask = _attn_inputs()
+    dout = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    return q, k, v, mask, dout
+
+
+# dq, dk, dv in fp32, sums over up to M=200 keys in another order:
+# relative to each gradient's largest element.
+BWD_RTOL = 1e-5
+
+
+def test_attention_backward_matches_jax_vjp():
+    h = 2
+    q, k, v, mask, dout = _attn_bwd_inputs()
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_attn._reference_attention(a, b, c, jnp.asarray(mask), h),
+        *map(jnp.asarray, (q, k, v)),
+    )
+    want = [np.asarray(w) for w in vjp(jnp.asarray(dout))]
+    tq, tk, tv, tm, td = map(torch.from_numpy, (q, k, v, mask, dout))
+    out, lse = pt_attn.attention_fwd_plain(tq, tk, tv, tm, h)
+    got = pt_attn.attention_bwd_plain(tq, tk, tv, tm, out, lse, td, h)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    pt_attn.fused_masked_attention(*leaves, tm, h).backward(td)
+    for g, a, w in zip(got, leaves, want):
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=BWD_RTOL * scale)
+        np.testing.assert_allclose(a.grad.numpy(), w, rtol=0, atol=BWD_RTOL * scale)
+    dq, dk, dv = got
+    assert (dq[0] == 0).all() and (dk[0] == 0).all() and (dv[0] == 0).all()  # fully masked
+    assert (dk[mask == 0] == 0).all() and (dv[mask == 0] == 0).all()  # masked keys
+    # A single key: p = 1 and ds = dp - delta, two sums of the same products
+    # in other orders, so dq is zero up to their rounding.
+    assert dq[1].abs().max().item() <= 1e-6 * np.abs(want[0]).max()
+    np.testing.assert_allclose(dv[1, 137].numpy(), dout[1].sum(axis=0), rtol=1e-5)
+
+
+def test_attention_backward_matches_pallas_kernels_interpret():
+    """The TPU backward kernel, fed the TPU forward kernel's weights P (both
+    in interpret mode), against the port's backward from L."""
+    h = 2
+    q, k, v, mask, dout = _attn_bwd_inputs()
+    b, tq, c = q.shape
+    tm = k.shape[1]
+    qp, mp = jax_attn._round_up(tq, 128), jax_attn._round_up(tm, 128)
+    split = lambda x: jax_attn._split_heads(jnp.asarray(x), h)  # noqa: E731
+
+    def to_t(x, length, pad_to):  # [B, T, C] -> [BH, D, pad_to]
+        return jnp.pad(jnp.swapaxes(split(x), 1, 2), ((0, 0), (0, 0), (0, pad_to - length)))
+
+    qh = jnp.pad(split(q), ((0, 0), (0, qp - tq), (0, 0)))
+    maskp = jnp.pad(jnp.asarray(mask), ((0, 0), (0, mp - tm)))[:, None, :]
+    _, p = jax_attn._attn_fwd_call(qh, to_t(k, tm, mp), to_t(v, tm, mp), maskp, interpret=True)
+    dqt, dkt, dvt = jax_attn._attn_bwd_call(
+        p, to_t(dout, tq, qp), to_t(q, tq, qp), to_t(k, tm, mp), to_t(v, tm, mp), interpret=True
+    )
+    merge = lambda x, n: np.asarray(jax_attn._merge_heads(jnp.swapaxes(x, 1, 2)[:, :n], b))  # noqa: E731
+    want = (merge(dqt, tq), merge(dkt, tm), merge(dvt, tm))
+    tq_, tk, tv, tmask, td = map(torch.from_numpy, (q, k, v, mask, dout))
+    out, lse = pt_attn.attention_fwd_plain(tq_, tk, tv, tmask, h)
+    got = pt_attn.attention_bwd_plain(tq_, tk, tv, tmask, out, lse, td, h)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=BWD_RTOL * np.abs(w).max())
+
+
+def test_attention_backward_wrapper_on_cpu():
+    q, k, v, mask, dout = map(torch.from_numpy, _attn_bwd_inputs())
+    out, lse = pt_attn.attention_fwd(q, k, v, mask, 2)
+    before = pt_attn.attention_bwd.launches
+    got = pt_attn.attention_bwd(q, k, v, mask, out, lse, dout, 2)
+    assert pt_attn.attention_bwd.launches == before  # no kernel on the CPU
+    want = pt_attn.attention_bwd_plain(q, k, v, mask, out, lse, dout, 2)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pt_attn.attention_bwd(*(t.to("meta") for t in (q, k, v, mask, out, lse, dout)), 2)
 
 
 def test_gelu_is_the_tanh_form():

@@ -1,12 +1,36 @@
-"""PyTorch/CUDA port of topo_audio_autoencoder_tpu: the codec's eval path.
+"""PyTorch/CUDA port of topo_audio_autoencoder_tpu: the codec's eval path
+and the train step.
 
 The JAX package stays the reference; this package imports nothing of it
 (and not JAX). Entry points run on the CUDA card unless the caller passes
-``device="cpu"``. The one hand-written kernel on this path, the masked
-cross-attention forward, lives in ``csrc/`` and is built on first use.
+``device="cpu"``. The hand-written kernels on these paths (the masked
+cross-attention forward and backward, the binary-Gumbel sampler) live in
+``csrc/`` and are built on first use.
 """
 
 from .inference import Codec, SimplicialLatent, pack_latent, unpack_latent
 from .models import AudioAutoencoder
+from .training import (
+    LossWeights,
+    TrainState,
+    anneal_temperature,
+    create_train_state,
+    make_eval_step,
+    make_optimizer,
+    make_train_step,
+)
 
-__all__ = ["AudioAutoencoder", "Codec", "SimplicialLatent", "pack_latent", "unpack_latent"]
+__all__ = [
+    "AudioAutoencoder",
+    "Codec",
+    "LossWeights",
+    "SimplicialLatent",
+    "TrainState",
+    "anneal_temperature",
+    "create_train_state",
+    "make_eval_step",
+    "make_optimizer",
+    "make_train_step",
+    "pack_latent",
+    "unpack_latent",
+]

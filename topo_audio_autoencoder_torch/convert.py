@@ -63,7 +63,9 @@ def state_dict_from_flax(flax_params: Mapping, template: Mapping) -> dict:
                 f"flax leaf {'/'.join(path)} -> {name}: shape {tuple(array.shape)} "
                 f"does not match the port's {tuple(target.shape)}"
             )
-        out[name] = torch.as_tensor(np.ascontiguousarray(array), dtype=target.dtype)
+        # A copy: the result shares no memory with the flax arrays, and a
+        # scalar keeps its shape () (np.ascontiguousarray would make it 1-d).
+        out[name] = torch.tensor(np.asarray(array), dtype=target.dtype)
     missing = sorted(set(template) - set(out))
     if missing:
         raise KeyError(f"port parameters not filled by the flax tree: {missing}")

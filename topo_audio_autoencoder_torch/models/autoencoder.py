@@ -1,9 +1,10 @@
 """Autoencoder facade: PQMF -> encoder -> complex -> decoder -> PQMF^-1.
 
-Port of ``topo_audio_autoencoder_tpu.models.autoencoder`` for the eval path
-(``train=False``): the binary Gumbel sampler thresholded at 0.5, the dense
-masked-static operators, fp32. Waveforms are NCW ``[B, 1, T]`` at the
-facade; internals are channels-last.
+Port of ``topo_audio_autoencoder_tpu.models.autoencoder`` for the binary
+Gumbel sampler (``hard=False``) and the dense masked-static operators, in
+training (``train=True``: dropout, the sampled relaxation, the SCCN's
+LayerNorms) and in eval (the relaxation thresholded at 0.5). Waveforms are
+NCW ``[B, 1, T]`` at the facade; internals are channels-last.
 
 ``AudioAutoencoder.create`` builds the model on ``cuda`` unless the caller
 passes ``device="cpu"``, and raises when no card is present and none was
@@ -40,16 +41,8 @@ class AutoencoderOutput(NamedTuple):
     encoder_output: EncoderOutput
 
 
-def _eval_only(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "train=True belongs to the training slice of the PyTorch port; "
-            "this slice runs the eval path only"
-        )
-
-
 class AudioAutoencoder(nn.Module):
-    """Full model, eval path."""
+    """Full model: PQMF analysis, encoder, complex, decoder, PQMF synthesis."""
 
     def __init__(
         self,
@@ -61,6 +54,8 @@ class AudioAutoencoder(nn.Module):
         n_sccn_layers: int = 6,
         pqmf_attenuation: float = 100.0,
         num_samples: int = 64000,
+        dropout: float = 0.1,
+        use_fused_sampler: bool = True,
     ):
         super().__init__()
         self.tables = tables
@@ -71,7 +66,9 @@ class AudioAutoencoder(nn.Module):
         self.n_sccn_layers = n_sccn_layers
         self.num_samples = num_samples
         self.pqmf = PQMF(attenuation=pqmf_attenuation, n_band=num_bands)
-        self.encoder = AudioEncoder(tables, num_bands, sccn_hidden_dim, num_samples)
+        self.encoder = AudioEncoder(
+            tables, num_bands, sccn_hidden_dim, num_samples, dropout, use_fused_sampler
+        )
         self.decoder = AudioDecoder(
             sccn_hidden_dim=sccn_hidden_dim,
             initial_sequence_length=250,
@@ -92,10 +89,13 @@ class AudioAutoencoder(nn.Module):
         num_samples: int = 64000,
         seed: int = DEFAULT_SEED,
         device=None,
+        dropout: float = 0.1,
+        use_fused_sampler: bool = True,
     ) -> "AudioAutoencoder":
         """Build tables, filterbank and seeded weights, on ``device``
         (default ``cuda``). ``num_samples`` is the clip length the encoder's
-        MLP is sized for (flax infers it from the first call)."""
+        MLP is sized for (flax infers it from the first call). ``dropout``
+        and ``use_fused_sampler`` have the JAX package's defaults."""
         device = resolve_device(device)
         model = cls(
             tables=build_tables(num_vertices),
@@ -106,6 +106,8 @@ class AudioAutoencoder(nn.Module):
             n_sccn_layers=n_sccn_layers,
             pqmf_attenuation=pqmf_attenuation,
             num_samples=num_samples,
+            dropout=dropout,
+            use_fused_sampler=use_fused_sampler,
         )
         model.reset_parameters(seed)
         return model.to(device).eval()
@@ -120,18 +122,25 @@ class AudioAutoencoder(nn.Module):
         self.decoder.reset_parameters(generator)
         self.to(device)
 
-    def encode(self, x: torch.Tensor, temperature=1.0, train: bool = False) -> EncoderOutput:
-        """[B, 1, T] -> EncoderOutput."""
-        _eval_only(train)
+    def encode(
+        self,
+        x: torch.Tensor,
+        temperature=1.0,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> EncoderOutput:
+        """[B, 1, T] -> EncoderOutput. In training, ``generator`` draws the
+        dropout masks and the sampler's seed; ``noise`` (uniforms [B, S])
+        replaces the sampler's draw."""
         bands = self.pqmf(x)  # [B, M, T/M]
-        return self.encoder(bands.transpose(-1, -2), temperature, train)
+        return self.encoder(bands.transpose(-1, -2), temperature, train, generator, noise)
 
     def decode(
         self, enc: EncoderOutput, desired_length: int | None = None, train: bool = False
     ) -> torch.Tensor:
         """EncoderOutput -> [B, 1, T]. ``desired_length`` is the per-band
         (post-PQMF) length."""
-        _eval_only(train)
         sub = self.decoder(enc.embeddings, enc.ops, enc.masks, desired_length, train)
         return self.pqmf.inverse(sub.transpose(-1, -2))
 
@@ -141,7 +150,6 @@ class AudioAutoencoder(nn.Module):
         """Decode straight from a per-rank probability latent: embeddings and
         operators are rebuilt from the latent alone. The latent is
         re-rectified first (idempotent on valid latents)."""
-        _eval_only(train)
         rect = enforce_constraints(*probs.ranks, self.tables)
         masks = tuple((p > 0).to(p.dtype) for p in rect.ranks)
         ops = build_operators(rect, self.tables, masks=masks)
@@ -163,8 +171,15 @@ class AudioAutoencoder(nn.Module):
             "pack_capacities": None,
         }
 
-    def forward(self, x: torch.Tensor, temperature=1.0, train: bool = False) -> AutoencoderOutput:
-        enc = self.encode(x, temperature, train)
+    def forward(
+        self,
+        x: torch.Tensor,
+        temperature=1.0,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> AutoencoderOutput:
+        enc = self.encode(x, temperature, train, generator, noise)
         wav = self.decode(enc, x.shape[-1] // self.num_bands, train)
         aux = {
             "binary_entropy": rank_diversity_entropy(enc.rectified),

@@ -1,7 +1,8 @@
 """Audio encoder: PQMF bands -> conv stacks -> simplex logits -> complex.
 
-Port of ``topo_audio_autoencoder_tpu.models.encoder`` for the eval path
-(``sampler="gumbel"``, ``hard=False``, dense masked-static operators).
+Port of ``topo_audio_autoencoder_tpu.models.encoder`` for
+``sampler="gumbel"``, ``hard=False`` and the dense masked-static operators,
+in training and in eval.
 
 - The 16 per-band conv stacks are one grouped conv per stage (``groups`` =
   number of bands), channels band-major, so the per-band GroupNorm becomes
@@ -10,6 +11,9 @@ Port of ``topo_audio_autoencoder_tpu.models.encoder`` for the eval path
   the convs run on the NCW transpose inside.
 - Flax's LayerNorm and GroupNorm use eps 1e-6 and ``nn.gelu`` is the tanh
   approximation; the port sets both explicitly.
+- Randomness comes from explicit ``torch.Generator``s (dropout in the MLP,
+  the sampler's seed) or, for the sampler, from injected uniforms
+  (``noise=``): flax's streams cannot be reproduced in torch.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_samplers import binary_gumbel_fused_diff
 from ..ops.samplers import binary_gumbel
 from ..topology.builder import SimplicialOperators, build_operators
 from ..topology.complexes import ComplexTables
@@ -39,6 +44,19 @@ def layer_norm(channels: int) -> nn.LayerNorm:
 
 def group_norm(groups: int, channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(groups, channels, eps=FLAX_NORM_EPS)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout as ``flax.linen.Dropout``: keep with probability
+    1 - rate and scale the kept values by 1 / (1 - rate). The keep mask is
+    drawn from ``generator`` on its own device."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a generator")
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = (u >= rate).to(x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> nn.Conv1d:
@@ -95,7 +113,12 @@ class BandEncoder(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    """Waveform bands -> simplex logits -> rectified complex (eval path)."""
+    """Waveform bands -> simplex logits -> rectified complex.
+
+    ``use_fused_sampler`` (the default, as in the JAX package) samples the
+    train-mode relaxation through ``ops.fused_samplers`` (a CUDA kernel on
+    the card); ``False`` takes the plain ``ops.samplers.binary_gumbel``.
+    """
 
     def __init__(
         self,
@@ -103,8 +126,12 @@ class AudioEncoder(nn.Module):
         num_bands: int = 16,
         embedding_dim: int = 64,
         num_samples: int = 64000,
+        dropout: float = 0.1,
+        use_fused_sampler: bool = True,
     ):
         super().__init__()
+        self.dropout = dropout
+        self.use_fused_sampler = use_fused_sampler
         self.tables = tables
         self.sizes = tables.sizes
         self.total_simplices = tables.total_simplices
@@ -147,12 +174,13 @@ class AudioEncoder(nn.Module):
             for r in range(4):
                 getattr(self, f"embed_rank{r}").normal_(0.0, 1.0, generator=generator)
 
-    def compute_logits(self, bands: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """[B, T, num_bands] (channels-last PQMF bands) -> [B, S_total]."""
-        if train:
-            raise NotImplementedError(
-                "encoder dropout belongs to the training slice of the PyTorch port"
-            )
+    def compute_logits(
+        self, bands: torch.Tensor, train: bool = False, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        """[B, T, num_bands] (channels-last PQMF bands) -> [B, S_total].
+        In training, dropout after both hidden MLP layers, drawn from
+        ``generator``."""
+        rate = self.dropout if train else 0.0
         x = self.band_encoder.forward_ncw(bands.transpose(1, 2))  # [B, 16nb, T/8]
         # Skip: max over adjacent channel pairs, 16nb -> 8nb channels.
         b, c, t = x.shape
@@ -165,8 +193,8 @@ class AudioEncoder(nn.Module):
         y = gelu(self.red_norm2(self.red2(y)))  # [B, 8nb, frames]
         # Flatten in the JAX package's channels-last order.
         y = y.transpose(1, 2).reshape(b, -1)
-        y = gelu(self.mlp_norm0(self.mlp0(y)))
-        y = gelu(self.mlp_norm1(self.mlp1(y)))
+        y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator)
+        y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator)
         return self.mlp2(y)  # [B, S_total]
 
     def embed(self, probs: RectifiedProbs) -> tuple:
@@ -178,19 +206,29 @@ class AudioEncoder(nn.Module):
         )
 
     def generate_complex(
-        self, logits: torch.Tensor, temperature=1.0, train: bool = False
+        self,
+        logits: torch.Tensor,
+        temperature=1.0,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
     ) -> EncoderOutput:
-        """Threshold, rectify, embed and assemble the operators."""
+        """Sample (train) or threshold (eval), rectify, embed and assemble
+        the operators. In training the relaxation's uniforms come from
+        ``noise`` when given, else from ``generator``."""
         v = self.sizes[0]
         biased = torch.cat(
             [logits[..., :v] + F.relu(self.vertex_bias), logits[..., v:]], dim=-1
         )
-        probs_all = binary_gumbel(biased, None, temperature, training=train)
+        if train and self.use_fused_sampler:
+            probs_all = binary_gumbel_fused_diff(biased, generator, temperature, True, noise)
+        else:
+            probs_all = binary_gumbel(biased, generator, temperature, train, noise)
         rect = enforce_constraints(*self.tables.split(probs_all), self.tables)
         masks = tuple((p > 0).to(logits.dtype) for p in rect.ranks)
         valid = rect.vertices.sum(dim=-1) > 0
         # Operators from the rectified probs, masks from the output probs
-        # (the same tensors on this path).
+        # (the same tensors when hard=False).
         ops = build_operators(rect, self.tables, masks=masks)
         return EncoderOutput(
             logits=logits,
@@ -203,8 +241,35 @@ class AudioEncoder(nn.Module):
             l0=torch.zeros(logits.shape[:-1], dtype=logits.dtype, device=logits.device),
         )
 
-    def forward(self, bands: torch.Tensor, temperature=1.0, train: bool = False) -> EncoderOutput:
-        return self.generate_complex(self.compute_logits(bands, train), temperature, train)
+    def forward(
+        self,
+        bands: torch.Tensor,
+        temperature=1.0,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        noise: torch.Tensor | None = None,
+    ) -> EncoderOutput:
+        logits = self.compute_logits(bands, train, generator)
+        return self.generate_complex(logits, temperature, train, generator, noise)
+
+
+def info_nce_loss(logits: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:
+    """InfoNCE over simplex-logit rows. logits: [B, G, S], row 0 = anchor,
+    1 = positive, 2: = negatives; cross-entropy with label 0."""
+    norm = logits / (torch.linalg.vector_norm(logits, dim=-1, keepdim=True) + 1e-12)
+    anchor, positive, negatives = norm[:, 0], norm[:, 1], norm[:, 2:]
+    pos = torch.einsum("bs,bs->b", anchor, positive)[:, None]  # [B, 1]
+    neg = torch.einsum("bs,bks->bk", anchor, negatives)  # [B, K]
+    scores = torch.cat([pos, neg], dim=1) / temperature
+    return (torch.logsumexp(scores, dim=1) - scores[:, 0]).mean()
+
+
+def triplet_loss(logits: torch.Tensor, margin: float = 1.0) -> torch.Tensor:
+    """Triplet margin loss with L2 distance over [B, 3, S] logit rows."""
+    anchor, positive, negative = logits[:, 0], logits[:, 1], logits[:, 2]
+    d_pos = torch.linalg.vector_norm(anchor - positive, dim=-1)
+    d_neg = torch.linalg.vector_norm(anchor - negative, dim=-1)
+    return F.relu(d_pos - d_neg + margin).mean()
 
 
 def vertex_count_penalty(

@@ -1,17 +1,21 @@
-"""Masked multi-head cross-attention: the plain torch version and the
-wrapper of the hand-written CUDA forward kernel.
+"""Masked multi-head cross-attention: the plain torch versions and the
+wrappers of the hand-written CUDA forward and backward kernels.
 
 Port of ``topo_audio_autoencoder_tpu.ops.attention``. Semantics:
 
 - scores scaled by 1/sqrt(D), masked keys scored -1e9,
 - softmax and accumulation in fp32 whatever the input dtype,
-- a batch element whose memory is fully masked gives exactly zero output.
+- a batch element whose memory is fully masked gives exactly zero output
+  and exactly zero gradients.
 
 ``attention_fwd`` runs ``csrc/masked_attention_fwd.cu`` for CUDA tensors
 and the plain version ``attention_fwd_plain`` for CPU tensors; it never
 falls back from one to the other. Besides the output it returns the per-row
 log-sum-exp L [B, H, Q] (fp32, +inf for a fully masked element), the
-residual a backward needs to recompute the weights as exp(s - L).
+residual from which ``attention_bwd`` (``csrc/masked_attention_bwd.cu``,
+or ``attention_bwd_plain`` on the CPU) recomputes the weights as
+exp(s - L). ``MaskedAttention`` ties the two into one autograd Function,
+the same on both devices.
 """
 
 from __future__ import annotations
@@ -74,6 +78,39 @@ def _check(query, keys, values, key_mask, num_heads):
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
+def _split(x, num_heads):
+    """[B, T, C] -> [B, T, H, D] in fp32."""
+    b, t, c = x.shape
+    return x.to(torch.float32).reshape(b, t, num_heads, c // num_heads)
+
+
+def attention_bwd_plain(query, keys, values, key_mask, out, lse, dout, num_heads):
+    """Plain torch backward: the explicit softmax VJP in fp32.
+
+    Recomputes P = exp(s - L) on the active keys (0 on masked keys and in a
+    fully masked element, whose L is +inf), then ds = P (dP - delta) with
+    delta_i = dO_i . O_i (which equals sum_j P_ij dP_ij). Returns
+    (dq, dk, dv) in the dtypes of query, keys and values.
+    """
+    d = query.shape[-1] // num_heads
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, o, do = (_split(t, num_heads) for t in (query, keys, values, out, dout))
+    active = (key_mask > 0)[:, None, None, :]  # [B, 1, 1, M]
+    s = torch.einsum("bqhd,bmhd->bhqm", q, k) * scale
+    p = torch.where(active, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bmhd->bhqm", do, v)
+    delta = (do * o).sum(dim=-1).permute(0, 2, 1)  # [B, H, Q]
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqm,bmhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqm,bqhd->bmhd", ds, q) * scale
+    dv = torch.einsum("bhqm,bqhd->bmhd", p, do)
+    return (
+        dq.reshape(query.shape).to(query.dtype),
+        dk.reshape(keys.shape).to(keys.dtype),
+        dv.reshape(values.shape).to(values.dtype),
+    )
+
+
 @lru_cache(maxsize=None)
 def _kernel():
     """The C entry point of csrc/masked_attention_fwd.cu, built on first use."""
@@ -88,15 +125,7 @@ def _kernel():
 def _launch_cuda(query, keys, values, key_mask, num_heads):
     b, tq, c = query.shape
     tm = keys.shape[1]
-    d = c // num_heads
-    if query.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, not {query.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {_HEAD_DIMS}, not {d}")
-    if not (query.is_contiguous() and keys.is_contiguous() and values.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous query, keys and values")
-    if b == 0 or tq == 0 or b > 65535 or num_heads > 65535:
-        raise ValueError(f"the CUDA kernel does not take B={b}, Q={tq}, H={num_heads}")
+    _check_cuda(query, keys, values, num_heads)
     mask = key_mask.to(torch.float32).contiguous()
     out = torch.empty_like(query)
     lse = torch.empty((b, num_heads, tq), dtype=torch.float32, device=query.device)
@@ -114,6 +143,82 @@ def _launch_cuda(query, keys, values, key_mask, num_heads):
     return out, lse
 
 
+@lru_cache(maxsize=None)
+def _bwd_kernel():
+    """The C entry point of csrc/masked_attention_bwd.cu, built on first use."""
+    from ..cuda_build import load
+
+    fn = load("masked_attention_bwd").masked_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(query, keys, values, num_heads):
+    b, tq, c = query.shape
+    d = c // num_heads
+    if query.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {query.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head dims {_HEAD_DIMS}, not {d}")
+    if not (query.is_contiguous() and keys.is_contiguous() and values.is_contiguous()):
+        raise ValueError("the CUDA kernels take contiguous query, keys and values")
+    if b == 0 or tq == 0 or b > 65535 or num_heads > 65535:
+        raise ValueError(f"the CUDA kernels do not take B={b}, Q={tq}, H={num_heads}")
+
+
+def _launch_bwd_cuda(query, keys, values, key_mask, out, lse, dout, num_heads):
+    b, tq, c = query.shape
+    tm = keys.shape[1]
+    _check_cuda(query, keys, values, num_heads)
+    if out.shape != query.shape or dout.shape != query.shape:
+        raise ValueError("out and dout must have the query's shape")
+    if lse.shape != (b, num_heads, tq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [B, H, Q], not {lse.dtype} {tuple(lse.shape)}")
+    out = out.to(query.dtype).contiguous()
+    dout = dout.to(query.dtype).contiguous()
+    lse = lse.contiguous()
+    mask = key_mask.to(torch.float32).contiguous()
+    # Every element of dq, dk and dv is written by the kernels, masked key
+    # rows as exact zeros.
+    dq = torch.empty_like(query)
+    dk = torch.empty_like(keys)
+    dv = torch.empty_like(values)
+    delta = torch.empty((b, num_heads, tq), dtype=torch.float32, device=query.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(query.device):
+        stream = torch.cuda.current_stream(query.device).cuda_stream
+        err = fn(
+            query.data_ptr(), keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, tq, tm, c, num_heads, _DTYPE_CODES[query.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"masked_attention_bwd launch failed: CUDA error {err}")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def attention_bwd(query, keys, values, key_mask, out, lse, dout, num_heads):
+    """Masked attention backward -> (dq, dk, dv), from the forward's inputs,
+    its output and its log-sum-exp L, and the output's gradient dout.
+
+    CPU tensors take the plain version; CUDA tensors launch the CUDA
+    kernels (``launches`` counts those calls); any other device raises.
+    """
+    _check(query, keys, values, key_mask, num_heads)
+    device = query.device
+    if device.type == "cpu":
+        return attention_bwd_plain(query, keys, values, key_mask, out, lse, dout, num_heads)
+    if device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on cpu or cuda tensors, not {device}")
+    return _launch_bwd_cuda(query, keys, values, key_mask, out, lse, dout, num_heads)
+
+
+attention_bwd.launches = 0
+
+
 def attention_fwd(query, keys, values, key_mask, num_heads):
     """Masked attention forward -> (out [B, Q, C], lse [B, H, Q] fp32).
 
@@ -126,23 +231,39 @@ def attention_fwd(query, keys, values, key_mask, num_heads):
         return attention_fwd_plain(query, keys, values, key_mask, num_heads)
     if device.type != "cuda":
         raise ValueError(f"attention_fwd runs on cpu or cuda tensors, not {device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (query, keys, values)
-    ):
-        raise NotImplementedError(
-            "the attention backward kernel belongs to the training slice of "
-            "the PyTorch port: run the CUDA forward without gradients"
-        )
     return _launch_cuda(query, keys, values, key_mask, num_heads)
 
 
 attention_fwd.launches = 0
 
 
+class MaskedAttention(torch.autograd.Function):
+    """``attention_fwd`` forward, ``attention_bwd`` backward. Saves q, k, v,
+    the mask, the output and L; the mask and the head count take no
+    gradient. CPU tensors run the plain versions, CUDA tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, query, keys, values, key_mask, num_heads):
+        out, lse = attention_fwd(query, keys, values, key_mask, num_heads)
+        ctx.save_for_backward(query, keys, values, key_mask, out, lse)
+        ctx.num_heads = num_heads
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        query, keys, values, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(
+            query, keys, values, key_mask, out, lse, dout.contiguous(), ctx.num_heads
+        )
+        return dq, dk, dv, None, None
+
+
 def fused_masked_attention(query, keys, values, key_mask, num_heads):
     """Multi-head dot-product attention with a key-padding mask.
 
     query [B, Q, C], keys/values [B, M, C], key_mask [B, M] {0,1}.
-    Returns [B, Q, C]. C = num_heads * head_dim.
+    Returns [B, Q, C]. C = num_heads * head_dim. Differentiable in query,
+    keys and values through ``MaskedAttention``.
     """
-    return attention_fwd(query, keys, values, key_mask, num_heads)[0]
+    return MaskedAttention.apply(query, keys, values, key_mask, num_heads)[0]

@@ -1,0 +1,221 @@
+"""The binary Gumbel relaxation as one fused pass: the plain torch version
+and the wrapper of the hand-written CUDA kernel ``csrc/binary_gumbel.cu``.
+
+Port of the binary-Gumbel part of ``topo_audio_autoencoder_tpu.ops.pallas_kernels``
+(``binary_gumbel_fused`` and the differentiable ``binary_gumbel_fused_diff``).
+The kernel draws its uniforms with Philox4x32-10 keyed by (seed, offset);
+``philox_uniform`` computes the same stream in plain torch, bit for bit, so
+the CPU and the card sample the same noise from the same seed. Either side
+can instead take the uniforms as a tensor (``noise=``), which is how the
+tests hand both packages the same numbers.
+
+``binary_gumbel_sample`` takes the plain version for CPU tensors and
+launches the kernel for CUDA tensors (``launches`` counts those launches);
+it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import torch
+
+from .samplers import UNIFORM_MAX, UNIFORM_MIN, binary_gumbel
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a * b for a 32-bit constant ``a`` and int64
+    tensors holding 32-bit words, without overflowing int64."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    low = a_lo * b  # < 2^48
+    t = a_hi * b + (low >> 16)  # < 2^49
+    hi = t >> 16
+    lo = ((t & 0xFFFF) << 16) | (low & 0xFFFF)
+    return hi, lo
+
+
+def philox_uniform(numel: int, seed: int, offset: int = 0, device=None) -> torch.Tensor:
+    """The kernel's uniforms for elements 0 .. numel-1, in plain torch.
+
+    Philox4x32-10 with key = the 64-bit seed and counter = (g, offset) for
+    the group g of elements 4g .. 4g+3; word j of a block becomes
+    ``(word >> 8) * 2^-24`` clipped to [1e-6, 1 - 1e-6]. Returns fp32 [numel].
+    """
+    groups = (numel + 3) // 4
+    g = torch.arange(groups, dtype=torch.int64, device=device)
+    c = [g & _MASK32, g >> 32,
+         torch.full_like(g, offset & _MASK32), torch.full_like(g, (offset >> 32) & _MASK32)]
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for round_ in range(10):
+        if round_:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    bits = torch.stack(c, dim=-1).reshape(-1)[:numel]
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return torch.clamp(u, UNIFORM_MIN, UNIFORM_MAX)
+
+
+def binary_gumbel_plain(logits: torch.Tensor, u: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The kernel's function in plain torch: fp32 inside, output in the
+    logits' dtype. ``u``: uniforms of the logits' shape."""
+    lf = logits.to(torch.float32)
+    n = torch.log(u) - torch.log1p(-u)
+    return torch.sigmoid((2.0 * lf - 1.0 + n) / float(temperature)).to(logits.dtype)
+
+
+@lru_cache(maxsize=None)
+def _kernels():
+    """The C entry points of csrc/binary_gumbel.cu, built on first use."""
+    from ..cuda_build import load
+
+    lib = load("binary_gumbel")
+    philox = lib.binary_gumbel_philox
+    philox.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
+                                               ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    philox.restype = ctypes.c_int
+    noise = lib.binary_gumbel_noise
+    noise.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                                              ctypes.c_void_p]
+    noise.restype = ctypes.c_int
+    return philox, noise
+
+
+def _launch_cuda(logits, temperature, seed, offset, noise, u_out):
+    if logits.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 logits, not {logits.dtype}")
+    if not logits.is_contiguous():
+        raise ValueError("the CUDA kernel takes contiguous logits")
+    out = torch.empty_like(logits)
+    philox, from_noise = _kernels()
+    code = _DTYPE_CODES[logits.dtype]
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        if noise is not None:
+            err = from_noise(logits.data_ptr(), noise.data_ptr(), out.data_ptr(),
+                             logits.numel(), float(temperature), code, stream)
+        else:
+            err = philox(logits.data_ptr(), out.data_ptr(),
+                         0 if u_out is None else u_out.data_ptr(), logits.numel(),
+                         seed, offset, float(temperature), code, stream)
+    if err != 0:
+        raise RuntimeError(f"binary_gumbel launch failed: CUDA error {err}")
+    binary_gumbel_sample.launches += 1
+    return out
+
+
+def binary_gumbel_sample(
+    logits: torch.Tensor,
+    temperature: float,
+    seed: int = 0,
+    offset: int = 0,
+    noise: torch.Tensor | None = None,
+    return_noise: bool = False,
+):
+    """``s = sigmoid((2l - 1 + logistic(u)) / T)`` in one pass.
+
+    ``u`` is ``noise`` (fp32 uniforms of the logits' shape) when given,
+    else the Philox stream of (``seed``, ``offset``). With ``return_noise``
+    the uniforms used are returned too: ``(s, u)``. CPU tensors take the
+    plain version; CUDA tensors launch the kernel; any other device raises.
+    """
+    if not float(temperature) > 0.0:
+        raise ValueError(f"temperature must be positive, not {temperature}")
+    if not 0 <= seed < 2**64 or not 0 <= offset < 2**64:
+        raise ValueError("seed and offset are unsigned 64-bit integers")
+    device = logits.device
+    if noise is not None:
+        if noise.shape != logits.shape:
+            raise ValueError(f"noise {tuple(noise.shape)} must match logits {tuple(logits.shape)}")
+        noise = noise.to(device=device, dtype=torch.float32).contiguous()
+    if device.type == "cpu":
+        u = noise if noise is not None else philox_uniform(
+            logits.numel(), seed, offset, device).reshape(logits.shape)
+        s = binary_gumbel_plain(logits, u, temperature)
+        return (s, u) if return_noise else s
+    if device.type != "cuda":
+        raise ValueError(f"binary_gumbel_sample runs on cpu or cuda tensors, not {device}")
+    u_out = None
+    if return_noise and noise is None:
+        u_out = torch.empty(logits.shape, dtype=torch.float32, device=device)
+    s = _launch_cuda(logits, temperature, seed, offset, noise, u_out)
+    if return_noise:
+        return s, (noise if noise is not None else u_out)
+    return s
+
+
+binary_gumbel_sample.launches = 0
+
+
+def seed_from(generator: torch.Generator) -> int:
+    """A 63-bit Philox seed drawn from ``generator`` (on its own device; a
+    CPU generator costs the card no synchronisation)."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator,
+                             device=generator.device).item())
+
+
+def _seed(generator: torch.Generator | None, noise: torch.Tensor | None) -> int:
+    """The Philox seed of a train-mode draw: unused (0) when the uniforms
+    are given, else drawn from ``generator``."""
+    if noise is not None:
+        return 0
+    if generator is None:
+        raise ValueError("the train-mode binary Gumbel sample needs a generator or noise")
+    return seed_from(generator)
+
+
+def binary_gumbel_fused(
+    logits: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature,
+    training: bool = True,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Binary Gumbel sample through the fused pass; eval mode thresholds
+    at 0.5 like ``samplers.binary_gumbel``. The seed comes from
+    ``generator`` unless ``noise`` is given."""
+    if not training:
+        return binary_gumbel(logits, None, temperature, training=False)
+    return binary_gumbel_sample(logits, float(temperature), seed=_seed(generator, noise), noise=noise)
+
+
+class BinaryGumbel(torch.autograd.Function):
+    """Fused forward; backward in closed form from the output alone:
+    ds/dl = 2 s (1 - s) / T (plain torch: elementwise, as the JAX package
+    leaves it to XLA). The temperature takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, temperature, seed, noise):
+        s = binary_gumbel_sample(logits, temperature, seed=seed, noise=noise)
+        ctx.save_for_backward(s)
+        ctx.temperature = float(temperature)
+        return s
+
+    @staticmethod
+    def backward(ctx, ct):
+        (s,) = ctx.saved_tensors
+        sf = s.to(torch.float32)
+        ds = 2.0 * sf * (1.0 - sf) / ctx.temperature
+        return (ct.to(torch.float32) * ds).to(s.dtype), None, None, None
+
+
+def binary_gumbel_fused_diff(
+    logits: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature,
+    training: bool = True,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``binary_gumbel_fused`` with the closed-form gradient to the logits
+    (eval mode: a threshold, with no gradient)."""
+    if not training:
+        return binary_gumbel(logits, None, temperature, training=False)
+    return BinaryGumbel.apply(logits, float(temperature), _seed(generator, noise), noise)

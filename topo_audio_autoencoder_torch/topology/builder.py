@@ -71,11 +71,16 @@ class SimplicialOperators(NamedTuple):
 def membership_matrices(
     tables: ComplexTables, dtype: torch.dtype, device: torch.device
 ) -> tuple:
-    """v2e, e2t, t2tt as dense tensors, built once per (tables, dtype, device)."""
-    return tuple(
-        torch.as_tensor(m, dtype=dtype, device=device)
-        for m in (tables.v2e, tables.e2t, tables.t2tt)
-    )
+    """v2e, e2t, t2tt as dense tensors, built once per (tables, dtype, device).
+
+    Built with inference mode off, so that a first call under
+    ``torch.inference_mode`` (the codec) does not cache tensors that a later
+    training step could not save for backward."""
+    with torch.inference_mode(False):
+        return tuple(
+            torch.as_tensor(m, dtype=dtype, device=device)
+            for m in (tables.v2e, tables.e2t, tables.t2tt)
+        )
 
 
 def build_operators(

@@ -43,11 +43,13 @@ class RectifiedProbs(NamedTuple):
 @lru_cache(maxsize=16)
 def face_indices(tables: ComplexTables, device: torch.device) -> tuple:
     """The static face tables (edges, tri_edges, tet_tris) as long tensors
-    on ``device``, built once per (tables, device)."""
-    return tuple(
-        torch.as_tensor(idx, dtype=torch.long, device=device)
-        for idx in (tables.edges, tables.tri_edges, tables.tet_tris)
-    )
+    on ``device``, built once per (tables, device), with inference mode off
+    (see ``builder.membership_matrices``)."""
+    with torch.inference_mode(False):
+        return tuple(
+            torch.as_tensor(idx, dtype=torch.long, device=device)
+            for idx in (tables.edges, tables.tri_edges, tables.tet_tris)
+        )
 
 
 def _rectify_rank(
