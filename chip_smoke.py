@@ -16,7 +16,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             one computes the same function, and the bound: the attention
             forward at the codec's shape, the attention backward at the
             train step's, the binary-Gumbel sampler at the train step's
-            logits (and its generator's statistics over 4M draws).
+            logits (and its generator's statistics over 4M draws), the
+            fixed- and learned-stretch Hard Concrete samplers at their
+            train steps' log-alpha (and the gates' clip statistics).
 3. serve    the flagship-width codec (n=20, 16 bands, C=64, 6 SCCN
             layers, seeded random weights): a warm-up request and three
             timed ones of 8 clips x 64,000 samples, each encode -> pack ->
@@ -35,8 +37,20 @@ the kernels are built for sm_90a). Phases, one JSON line each:
    trace    one train step under torch.profiler.
 7. train_parity  one step's loss and gradients on the card against the
             CPU plain path on the same weights and uniforms (B=2, G=3).
-8. kernels  one line per kernel: route, source, launches (train step),
-            error, times (from the train step's inputs).
+8. train_hc  BASELINE config 3: the fixed-stretch Hard Concrete model
+            with the straight-through hard path, fp32, B=32 anchors x G=1,
+            a warm-up and 5 timed steps, counters zeroed just before and
+            read just after; then one step under torch.profiler.
+9. train_hc_learned  the learned-stretch model (soft, B=16 x G=3, L0
+            weight 0.01): a warm-up and 3 timed steps, counters as above.
+10. encode_hc  BASELINE config 1: batch-1 eval encodes of the hard model
+            with Bernoulli draws; one 8-clip codec request.
+11. train_parity_hc, train_parity_hc_learned  train_parity for the two
+            Hard Concrete models (B=2; G=1 and G=3), with injected
+            relaxation and Bernoulli uniforms whose every gate and draw
+            clears a stated margin; the encoder masks equal bit for bit.
+12. kernels  one line per kernel: route, source, launches (its train
+            step), error, times (at its train step's shape).
 
 Then the nvidia-smi line and, last, {"ok": true, "device": ...}. Any failed
 check exits non-zero before the last line. Without a card it exits 2.
@@ -119,6 +133,41 @@ SAMPLER_DRAWS = 1 << 22
 PARITY_LOSS_RTOL = 1e-4
 PARITY_GRAD_REL_L2 = 2e-2
 SURROGATE_TOL = 2e-4
+# A real gradient further than PARITY_GRAD_REL_L2 from the CPU's fails
+# unless the CPU's own gradient moves by more than PARITY_GRAD_REL_L2 when
+# the batch is nudged by FLOOR_NUDGE (relative): then the real gradient
+# carries no fp32-stable information at these inputs (the soft Hard
+# Concrete step at beta = 2/3 moves by ~40% on the card's host, PERF.md),
+# and the step is held by its loss, its masks and every leaf of the
+# surrogate.
+FLOOR_NUDGE = 1e-6
+
+# The Hard Concrete paths. BASELINE config 3 (benchmarks/run_all.py:158):
+# the fixed stretch with the straight-through hard path, B=32 anchors x
+# G=1 (no contrastive term), temperature 1; the recipe's --learned-hc
+# model: the learned per-rank stretch, soft, B=16 x G=3, the expected-L0
+# term weighted 0.01.
+HC_MODEL = dict(sampler="hard_concrete", hard=True)
+HC_LEARNED_MODEL = dict(sampler="hard_concrete", learned_hc=True)
+HC_B, HC_G, HC_STEPS = 32, 1, 5
+HC_LEARNED_STEPS = 3
+HC_L0_PENALTY = 0.01
+# The kernel phase: Louizos et al.'s beta = 2/3; the gate statistics over
+# 4M draws at log-alpha 0 (P(z = 0) = P(z = 1) = sigmoid(beta log(1/11))).
+HC_BETA = 2.0 / 3.0
+HC_DRAWS = 1 << 22
+# About 45 operations per gate (a quarter of a Philox block, log, log1p,
+# exp, a divide, the stretch and the clip).
+HC_OPS_PER_ELEMENT = 45.0
+# BASELINE config 1 (benchmarks/run_all.py:89): a batch-1 encode in eval
+# with a generator (the hard path's Bernoulli draws), ENCODE_CALLS times.
+ENCODE_CALLS = 20
+# Card vs CPU parity of a Hard Concrete or hard step: every pre-clip gate
+# and every Bernoulli draw must clear this margin (logits differ by ~4e-6
+# card vs CPU, and a pre-clip gate moves by at most 0.3x its logit), else
+# the next seed is tried, up to HC_SEED_TRIES.
+HC_MARGIN = 1e-5
+HC_SEED_TRIES = 20
 
 
 class CheckFailed(Exception):
@@ -462,7 +511,7 @@ def phase_serve(torch, port, counters) -> tuple:
     counts = {name: c.launches for name, c in counters.items()}  # just after the serve path
     launches = counts["masked_attention_fwd"]
     check(launches == decoder_calls, f"attention launches {launches} != decoder calls {decoder_calls}")
-    check(counts["masked_attention_bwd"] == 0 and counts["binary_gumbel"] == 0,
+    check(all(n == 0 for name, n in counts.items() if name != "masked_attention_fwd"),
           f"the eval path launched training kernels: {counts}")
     enc = statistics.median(t["encode_ms"] for t in timed)
     dec = statistics.median(t["decode_ms"] for t in timed)
@@ -582,6 +631,28 @@ def train_batch(seed: int, b: int) -> np.ndarray:
     return make_clips(b * TRAIN_G, seed).reshape(b, TRAIN_G, 1, NUM_SAMPLES)
 
 
+def timed_steps(torch, step, state, batches, counters):
+    """Runs the batches through the step (the first warms up), the launch
+    counters zeroed just before and read just after; every loss component
+    of every step must be finite. Returns (state, step ms, components,
+    launches)."""
+    for c in counters.values():
+        c.launches = 0  # just before the main path
+    times, metrics = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, TEMPERATURE, SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = {name: c.launches for name, c in counters.items()}  # just after
+    components = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for i, comp in enumerate(components):
+        check(all(math.isfinite(v) for v in comp.values()), f"train step {i}: non-finite loss {comp}")
+    return state, times, components, launches
+
+
 def phase_train(torch, port, counters) -> tuple:
     """The flagship train step at full width, fp32: a warm-up step and
     TRAIN_STEPS timed ones, then BF16_STEPS bf16 steps. Every loss
@@ -594,41 +665,21 @@ def phase_train(torch, port, counters) -> tuple:
                for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0  # just before the main path
-    times, metrics = [], []
-    for batch in batches:  # step 0 warms up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch, TEMPERATURE, SEED)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        metrics.append(m)
-    launches = {name: c.launches for name, c in counters.items()}  # just after
+    state, times, components, launches = timed_steps(torch, step, state, batches, counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = len(batches)
     per_step = {name: n / steps for name, n in launches.items()}
     check(launches["binary_gumbel"] == steps, f"sampler launches {launches} for {steps} steps")
     check(launches["masked_attention_fwd"] == steps, f"attention fwd launches {launches} for {steps} steps")
     check(launches["masked_attention_bwd"] >= steps, f"attention bwd launches {launches} for {steps} steps")
-    components = [{k: float(v) for k, v in m.items()} for m in metrics]
-    for i, comp in enumerate(components):
-        check(all(math.isfinite(v) for v in comp.values()), f"train step {i}: non-finite loss {comp}")
+    check(launches["hard_concrete"] == 0 and launches["hard_concrete_learned"] == 0,
+          f"the Gumbel step launched a Hard Concrete kernel: {launches}")
     step_ms = statistics.median(times[1:])
 
     bf16_opt = port.make_optimizer(accumulate_grad_batches=1)
-    bf16_state = port.create_train_state(model, bf16_opt)
     bf16_step = port.make_train_step(model, bf16_opt, compute_dtype=torch.bfloat16)
-    bf16_times, bf16_components = [], []
-    for batch in batches[:BF16_STEPS]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bf16_state, m = bf16_step(bf16_state, batch, TEMPERATURE, SEED)
-        torch.cuda.synchronize()
-        bf16_times.append((time.perf_counter() - t0) * 1e3)
-        bf16_components.append({k: float(v) for k, v in m.items()})
-    for i, comp in enumerate(bf16_components):
-        check(all(math.isfinite(v) for v in comp.values()), f"bf16 train step {i}: non-finite loss {comp}")
+    _, bf16_times, bf16_components, _ = timed_steps(
+        torch, bf16_step, port.create_train_state(model, bf16_opt), batches[:BF16_STEPS], counters)
     check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in model.parameters()),
           "master parameters not finite fp32 after the bf16 steps")
     emit(
@@ -674,7 +725,7 @@ def phase_train_kernels(torch, attention, model, state, step, batch) -> tuple:
     return fwd, bwd
 
 
-def phase_train_trace(torch, state, step, batch) -> None:
+def phase_train_trace(torch, state, step, batch, what="one flagship train step (fp32, B=16, G=3)") -> None:
     """Where one train step spends device time (torch.profiler): device
     busy share, top ops and kernels. Recorded, not checked."""
     from torch.autograd import DeviceType
@@ -697,7 +748,7 @@ def phase_train_trace(torch, state, step, batch) -> None:
         key=lambda e: -e.device_time_total,
     )
     emit(
-        "trace", what="one flagship train step (fp32, B=16, G=3) under torch.profiler",
+        "trace", what=f"{what} under torch.profiler",
         wall_ms_profiled=wall_ms, device_ms=device_ms, kernel_launches=sum(e.count for e in kernels),
         device_busy_share_profiled=device_ms / wall_ms,
         top_ops=[(e.key, e.device_time_total / 1e3, e.count) for e in ops[:15]],
@@ -705,9 +756,11 @@ def phase_train_trace(torch, state, step, batch) -> None:
     )
 
 
-def surrogate(torch, model, batch, noise, w):
+def surrogate(torch, model, batch, noise, w, hard_noise=None):
     """The train objective's forward with the spectral distance replaced by
-    <recon, w>: well conditioned in every gradient leaf."""
+    <recon, w>: well conditioned in every gradient leaf. G = 1 drops the
+    contrastive term; the expected-L0 term (zero for the Gumbel sampler)
+    is added. Returns the value and the encoder output."""
     from topo_audio_autoencoder_torch.models.encoder import (
         info_nce_loss,
         rank_diversity_entropy,
@@ -717,43 +770,293 @@ def surrogate(torch, model, batch, noise, w):
     b, g, _, t = batch.shape
     flat = batch.reshape(b * g, 1, t)
     logits = model.encoder.compute_logits(model.pqmf(flat).transpose(-1, -2), True)
-    contrastive = info_nce_loss(logits.reshape(b, g, -1))
-    enc = model.encoder.generate_complex(logits.reshape(b, g, -1)[:, 0], TEMPERATURE, True, noise=noise)
+    contrastive = info_nce_loss(logits.reshape(b, g, -1)) if g >= 3 else 0.0
+    enc = model.encoder.generate_complex(logits.reshape(b, g, -1)[:, 0], TEMPERATURE, True, noise=noise,
+                                         hard_noise=hard_noise)
     recon = model.decode(enc, t // model.num_bands, True)
     reg = rank_diversity_entropy(enc.rectified).mean() + vertex_count_penalty(
         enc.rectified.vertices, model.min_active_vertices, model.max_active_vertices).mean()
-    return (recon * w).sum() + contrastive + reg
+    return (recon * w).sum() + contrastive + reg + enc.l0.mean(), enc
 
 
-def phase_train_parity(torch, port, training) -> None:
+def hc_bound(n: int, elt: int, row_bytes: int = 0) -> tuple[float, str]:
+    """Least time for one Hard Concrete pass over n gates: read log-alpha
+    and write z once (and the three fp32 stretch rows once), about
+    HC_OPS_PER_ELEMENT operations per gate at the fp32 rate outside the
+    tensor cores."""
+    t_bytes = (2 * n * elt + row_bytes) / HBM_BPS
+    t_ops = HC_OPS_PER_ELEMENT * n / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def stretch_rows(torch, cols: int, rng):
+    """Per-simplex (beta, gamma, zeta) rows around the fixed stretch, as a
+    learned model's drift, fp32 on the card."""
+    rows = (rng.uniform(0.4, 1.0, cols), -rng.uniform(0.05, 0.2, cols), 1.0 + rng.uniform(0.05, 0.2, cols))
+    return [torch.from_numpy(r.astype(np.float32)).to(DEVICE) for r in rows]
+
+
+def phase_kernel_hc(torch, hc, fused, n_simplices: int) -> dict:
+    """Rows 4 and 5 at their train steps' log-alpha ([32, 6195] fixed,
+    [16, 6195] learned), fp32 and bf16: z against the plain version on the
+    kernel's own uniforms (equal to the plain Philox stream bit for bit);
+    both clips occur and are exact; reproducibility; the injected-uniforms
+    entry; the learned kernel with rows of the fixed stretch equal to the
+    fixed kernel bit for bit; then the gate statistics over 4M draws. No
+    single PyTorch call computes either function: no library time."""
+    from topo_audio_autoencoder_torch.ops.samplers import hard_concrete_l0_penalty
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 6)
+    rows = stretch_rows(torch, n_simplices, rng)
+    fixed_rows = [torch.full((n_simplices,), v, device=dev) for v in (HC_BETA, -0.1, 1.1)]
+    out = {}
+    for kernel, b in (("hard_concrete", HC_B), ("hard_concrete_learned", TRAIN_B)):
+        shape = (b, n_simplices)
+        results = []
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            a = torch.from_numpy(rng.normal(0.5, 2.0, shape).astype(np.float32)).to(dev, dtype)
+            if kernel == "hard_concrete":
+                def sample(a=a, **kw):
+                    return hc.hard_concrete_sample(a, HC_BETA, **kw)
+
+                def plain(u, a=a):
+                    return hc.hard_concrete_plain(a, u, HC_BETA)
+
+                row_bytes = 0
+            else:
+                def sample(a=a, **kw):
+                    return hc.hard_concrete_learned_sample(a, *rows, **kw)
+
+                def plain(u, a=a):
+                    return hc.hard_concrete_learned_plain(a, u, *rows)
+
+                row_bytes = 3 * n_simplices * 4
+                same = torch.equal(hc.hard_concrete_learned_sample(a, *fixed_rows, seed=SEED),
+                                   hc.hard_concrete_sample(a, HC_BETA, seed=SEED))
+                check(same, f"{kernel} {name}: rows of the fixed stretch differ from the fixed kernel")
+            z, u = sample(seed=SEED, offset=11, return_noise=True)
+            torch.cuda.synchronize()
+            check(torch.equal(u, fused.philox_uniform(a.numel(), SEED, 11, dev).reshape(shape)),
+                  f"{kernel} {name}: kernel uniforms differ from the Philox stream")
+            want = plain(u)
+            err = (z.float() - want.float()).abs().max().item()
+            check(z.dtype == dtype and z.shape == a.shape, f"{kernel} {name}: shape/dtype")
+            check(err <= TOL_SAMPLER[name], f"{kernel} {name}: max abs err {err} > {TOL_SAMPLER[name]}")
+            check(bool(((z >= 0) & (z <= 1)).all()), f"{kernel} {name}: a gate outside [0, 1]")
+            zeros, ones = (z == 0).float().mean().item(), (z == 1).float().mean().item()
+            check(zeros > 0 and ones > 0, f"{kernel} {name}: no exact clip to 0 or 1")
+            check(torch.equal(sample(seed=SEED, offset=11), z), f"{kernel} {name}: (seed, offset) does not reproduce")
+            check(not torch.equal(sample(seed=SEED + 1, offset=11), z), f"{kernel} {name}: another seed, same gates")
+            check((sample(noise=u).float() - want.float()).abs().max().item() <= TOL_SAMPLER[name],
+                  f"{kernel} {name}: the injected-noise entry point disagrees")
+
+            def plain_full(a=a, plain=plain):
+                return plain(fused.philox_uniform(a.numel(), SEED, 11, dev).reshape(a.shape))
+
+            bound_ms, bound_by = hc_bound(a.numel(), a.element_size(), row_bytes)
+            results.append(dict(
+                dtype=name, max_abs_err=err, tol=TOL_SAMPLER[name], frac_zero=zeros, frac_one=ones,
+                ms=time_ms(lambda sample=sample: sample(seed=SEED, offset=11)), plain_ms=time_ms(plain_full),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            ))
+        emit("kernel", kernel=kernel, inputs="synthetic", shape=list(shape), results=results)
+        out[kernel] = results[0]
+    z = hc.hard_concrete_sample(torch.zeros(HC_DRAWS, device=dev), HC_BETA, seed=SEED + 3)
+    p = 1.0 / (1.0 + math.exp(-HC_BETA * math.log(1.0 / 11.0)))
+    tol = 5 * math.sqrt(p * (1 - p) / HC_DRAWS)  # 5 standard errors
+    zeros, ones, nonzero = ((z == 0).float().mean().item(), (z == 1).float().mean().item(),
+                            (z > 0).float().mean().item())
+    l0 = hard_concrete_l0_penalty(torch.zeros(1, device=dev), HC_BETA).item()
+    check(abs(zeros - p) <= tol, f"hard_concrete gates: fraction exactly 0 {zeros}, want {p} +- {tol}")
+    check(abs(ones - p) <= tol, f"hard_concrete gates: fraction exactly 1 {ones}, want {p} +- {tol}")
+    check(abs(nonzero - l0) <= tol, f"hard_concrete gates: P(z > 0) {nonzero} against the L0 term {l0}")
+    emit("kernel", kernel="hard_concrete", inputs="gate statistics", draws=HC_DRAWS, beta=HC_BETA,
+         frac_zero=zeros, frac_one=ones, expected=p, tol=tol, frac_nonzero=nonzero, l0_term=l0)
+    return out
+
+
+def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, expect) -> tuple:
+    """A Hard Concrete train step at full width, fp32: a warm-up step and
+    ``steps`` timed ones. ``expect`` names the kernels that must launch
+    once per step; the other sampler kernels must not launch."""
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED, device=DEVICE, **options)
+    opt = port.make_optimizer(accumulate_grad_batches=1)
+    state = port.create_train_state(model, opt)
+    step = port.make_train_step(model, opt, weights)
+    batches = [torch.from_numpy(make_clips(b * g, SEED + 500 + i).reshape(b, g, 1, NUM_SAMPLES)).to(DEVICE)
+               for i in range(steps + 1)]
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("encoder.hc_")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, components, launches = timed_steps(torch, step, state, batches, counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = len(batches)
+    for name in ("masked_attention_fwd", "masked_attention_bwd", *expect):
+        check(launches[name] == n, f"{phase}: {name} launched {launches[name]} times in {n} steps")
+    for name in ("binary_gumbel", "hard_concrete", "hard_concrete_learned"):
+        if name not in expect:
+            check(launches[name] == 0, f"{phase}: {name} launched {launches[name]} times")
+    params = dict(model.named_parameters())
+    for name, old in before.items():
+        check(not torch.equal(params[name].detach(), old) and bool(torch.isfinite(params[name]).all()),
+              f"{phase}: the stretch leaf {name} did not move or is not finite")
+    step_ms = statistics.median(times[1:])
+    with torch.no_grad():
+        enc = model.encode(batches[0][:, 0], TEMPERATURE, train=True,
+                           generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    keys = enc.masks[1:]
+    emit(
+        phase, config=FLAGSHIP, options=options, anchors=b, group=g, samples=NUM_SAMPLES, dtype="float32",
+        temperature=TEMPERATURE, l0_penalty=weights.l0_penalty, steps_timed=steps, step_ms=times,
+        step_ms_median=step_ms, anchors_per_s=b / (step_ms / 1e3), clips_per_s=b * g / (step_ms / 1e3),
+        components=components, launches=launches, launches_per_step={k: v / n for k, v in launches.items()},
+        peak_mem_gib=peak_gib, num_params=model.num_params(),
+        active_attention_keys_per_clip=float(sum(m.sum() for m in keys)) / b,
+        attention_keys_per_clip=sum(int(m.shape[-1]) for m in keys),
+        stretch={k: params[k].detach().cpu().tolist() for k in before},
+    )
+    return model, state, step, batches[0], launches
+
+
+def phase_encode_hc(torch, port, counters) -> None:
+    """BASELINE config 1: the fixed-stretch hard model encodes one clip in
+    eval with a generator (the hard path's Bernoulli draws), ENCODE_CALLS
+    times; then one 8-clip codec request, whose latent round-trips the
+    wire bit-exactly (the eval latent is binary up to the straight-through
+    sum's ulp, and the wire carries its 0.5 threshold)."""
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 7, device=DEVICE,
+                                         **HC_MODEL)
+    x = torch.from_numpy(make_clips(1, SEED + 600)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for c in counters.values():
+        c.launches = 0  # just before the encode path
+    times = []
+    with torch.inference_mode():
+        for _ in range(ENCODE_CALLS + 1):  # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = model.encode(x, TEMPERATURE, train=False, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    encode_launches = {name: c.launches for name, c in counters.items()}  # just after
+    check(all(n == 0 for n in encode_launches.values()), f"an eval encode launched a kernel: {encode_launches}")
+    for r in enc.probs.ranks:
+        check(bool(((r - r.round()).abs() <= 1e-6).all()), "hard eval latent not binary to an ulp")
+    check(bool(enc.valid.all()), "hard eval encode: no active vertex")
+
+    codec = port.Codec(model, device=DEVICE)
+    clips = make_clips(CLIPS, SEED + 601)
+    for c in counters.values():
+        c.launches = 0  # just before the codec request
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latent = codec.encode(clips)
+    wire = port.pack_latent(latent)
+    back = port.unpack_latent(wire, FLAGSHIP["num_vertices"])
+    y = codec.decode(back, NUM_SAMPLES)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    request_launches = {name: c.launches for name, c in counters.items()}  # just after
+    check(request_launches["masked_attention_fwd"] == 1 and sum(request_launches.values()) == 1,
+          f"codec request launches {request_launches}")
+    check(np.array_equal(port.pack_latent(back), wire), "wire bytes do not round-trip")
+    for a, b in zip(latent.ranks, back.ranks):
+        check(torch.equal((a.cpu() >= 0.5).float(), b), "latent does not round-trip the wire bit-exactly")
+        check(float((a.cpu() - b).abs().max()) <= 1e-6, "hard latent differs from its wire bits by more than an ulp")
+    check(tuple(y.shape) == (CLIPS, 1, NUM_SAMPLES) and bool(torch.isfinite(y).all()), "codec waveform")
+    emit(
+        "encode_hc", config=FLAGSHIP, options=HC_MODEL, clips=1, calls=ENCODE_CALLS, encode_ms=times[1:],
+        encode_ms_p50=statistics.median(times[1:]), launches=encode_launches,
+        active=[float(r.sum()) for r in enc.probs.ranks],
+        request=dict(clips=CLIPS, ms=request_ms, launches=request_launches, wire_bytes_per_clip=int(wire.shape[1]),
+                     active=[float(r.sum(dim=-1).mean()) for r in latent.ranks]),
+    )
+
+
+
+
+def parity_inputs(torch, cpu, batch, options):
+    """The injected uniforms of a parity step: the relaxation's [2, S] and,
+    for a hard model, the four per-rank Bernoulli draws, and the weights w
+    of the surrogate. For a Hard Concrete or hard model the seed is the
+    first (from SEED + 5 up) whose every pre-clip gate and every draw
+    clears HC_MARGIN on the CPU: within rounding of the clip, a gate is
+    exactly 0 on one side and ~1e-8 on the other and flips an attention
+    key. Returns (noise, hard_noise, w, margins)."""
+    hc = options.get("sampler") == "hard_concrete"
+    hard = options.get("hard", False)
+    s_total = cpu.tables.total_simplices
+    if hc or hard:
+        b, g, _, t = batch.shape
+        with torch.no_grad():
+            logits = cpu.encoder.compute_logits(cpu.pqmf(batch.reshape(b * g, 1, t)).transpose(-1, -2), True)
+        anchors = logits.reshape(b, g, -1)[:, 0]
+        biased = anchors.double().clone()
+        biased[:, : cpu.tables.num_vertices] += float(cpu.encoder.vertex_bias.detach().relu())
+        if options.get("learned_hc"):
+            with torch.no_grad():
+                stretch = [r.double() for r in cpu.encoder._hc_stretch(torch.float32)]
+        else:
+            stretch = (TEMPERATURE, -0.1, 1.1)
+    for attempt in range(HC_SEED_TRIES):
+        rng = np.random.default_rng(SEED + 5 + 1000 * attempt)
+        noise = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (2, s_total)).astype(np.float32))
+        hard_noise = None
+        if hard:
+            hard_noise = [torch.from_numpy(rng.uniform(size=(2, n)).astype(np.float32)) for n in cpu.tables.sizes]
+        w = torch.from_numpy(rng.standard_normal((2, 1, NUM_SAMPLES)).astype(np.float32))
+        margins = {}
+        if hc:
+            u = noise.double()
+            beta, gamma, zeta = stretch
+            pre = torch.sigmoid((torch.log(u) - torch.log1p(-u) + biased) / beta) * (zeta - gamma) + gamma
+            margins["clip"] = float(torch.minimum(pre.abs(), (pre - 1).abs()).min())
+        if hard:
+            with torch.no_grad():
+                rect = cpu.encoder.generate_complex(anchors, TEMPERATURE, True, noise=noise,
+                                                    hard_noise=hard_noise).rectified
+            margins["draw"] = min(float((h.double() - p.double()).abs().min())
+                                  for h, p in zip(hard_noise, rect.ranks))
+        if all(m > HC_MARGIN for m in margins.values()):
+            margins["seed_attempt"] = attempt
+            return noise, hard_noise, w, margins
+    raise CheckFailed(f"no parity seed in {HC_SEED_TRIES} clears the mask margin {HC_MARGIN}: {margins}")
+
+
+def phase_train_parity(torch, port, training, phase="train_parity", options=None, group=TRAIN_G,
+                       weights=None) -> None:
     """One train step's loss and gradients on the card against the CPU plain
-    path: the same weights (dropout off), batch and injected uniforms."""
+    path: the same weights (dropout off), batch and injected uniforms (the
+    relaxation's and, for a hard model, the Bernoulli draws'); and the
+    encoder's masks equal bit for bit."""
+    options = options or {}
+    weights = weights or training.LossWeights()
     gpu = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 2,
-                                       device=DEVICE, dropout=0.0)
+                                       device=DEVICE, dropout=0.0, **options)
     cpu = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 3,
-                                       device="cpu", dropout=0.0)
+                                       device="cpu", dropout=0.0, **options)
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
-    batch = torch.from_numpy(train_batch(SEED + 400, b=2))
-    rng = np.random.default_rng(SEED + 5)
-    noise = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (2, gpu.tables.total_simplices)).astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((2, 1, NUM_SAMPLES)).astype(np.float32))
+    batch = torch.from_numpy(make_clips(2 * group, SEED + 400).reshape(2, group, 1, NUM_SAMPLES))
+    noise, hard_noise, w, margins = parity_inputs(torch, cpu, batch, options)
 
     def run(model, device):
-        total, comps, grads = training.make_loss_and_grads(model)(
-            batch.to(device), TEMPERATURE, SEED, 0, noise.to(device))
+        hn = None if hard_noise is None else [h.to(device) for h in hard_noise]
+        total, comps, grads = training.make_loss_and_grads(model, weights)(
+            batch.to(device), TEMPERATURE, SEED, 0, noise.to(device), hn)
         names, params = zip(*model.named_parameters())
-        val = surrogate(torch, model, batch.to(device), noise.to(device), w.to(device))
+        val, enc = surrogate(torch, model, batch.to(device), noise.to(device), w.to(device), hn)
         sgrads = dict(zip(names, torch.autograd.grad(val, params)))
         return (float(total), {k: float(v) for k, v in comps.items()},
                 {n: g.cpu().double() for n, g in grads.items()}, val.item(),
-                {n: g.detach().cpu().double() for n, g in sgrads.items()})
+                {n: g.detach().cpu().double() for n, g in sgrads.items()}, [m.cpu() for m in enc.masks])
 
-    g_total, g_comps, g_grads, g_val, g_sgrads = run(gpu, DEVICE)
-    c_total, c_comps, c_grads, c_val, c_sgrads = run(cpu, "cpu")
+    g_total, g_comps, g_grads, g_val, g_sgrads, g_masks = run(gpu, DEVICE)
+    c_total, c_comps, c_grads, c_val, c_sgrads, c_masks = run(cpu, "cpu")
+    flips = sum(int((a != b).sum()) for a, b in zip(g_masks, c_masks))
     loss_err = abs(g_total - c_total) / abs(c_total)
-    check(loss_err <= PARITY_LOSS_RTOL, f"train loss card vs cpu: rel {loss_err}")
     comp_err = {k: abs(g_comps[k] - c_comps[k]) / max(abs(c_comps[k]), 1e-6) for k in c_comps}
-    check(max(comp_err.values()) <= PARITY_LOSS_RTOL, f"loss components card vs cpu: {comp_err}")
 
     def l2(ts):
         return math.sqrt(sum(float((t ** 2).sum()) for t in ts))
@@ -761,20 +1064,33 @@ def phase_train_parity(torch, port, training) -> None:
     check(g_grads.keys() == c_grads.keys(), "gradient leaves differ")
     check(all(bool(torch.isfinite(g).all()) for g in g_grads.values()), "non-finite card gradient")
     grad_err = l2(g_grads[n] - c_grads[n] for n in c_grads) / l2(c_grads.values())
-    check(grad_err <= PARITY_GRAD_REL_L2, f"train gradient card vs cpu: rel L2 {grad_err}")
+    floor = None
+    if grad_err > PARITY_GRAD_REL_L2:  # is the real gradient conditioned here?
+        nudged = training.make_loss_and_grads(cpu, weights)(
+            batch * np.float32(1 + FLOOR_NUDGE), TEMPERATURE, SEED, 0, noise, hard_noise)[2]
+        floor = l2(nudged[n].double() - c_grads[n] for n in c_grads) / l2(c_grads.values())
+    conditioned = floor is None or floor <= PARITY_GRAD_REL_L2
     scale = max(float(g.abs().max()) for g in c_sgrads.values())
     leaf_err = {n: float((g_sgrads[n] - c_sgrads[n]).abs().max()) / scale for n in c_sgrads}
     worst = max(leaf_err, key=leaf_err.get)
-    check(leaf_err[worst] <= SURROGATE_TOL, f"surrogate gradient leaf {worst}: {leaf_err[worst]}")
     sur_err = abs(g_val - c_val) / abs(c_val)
     emit(
-        "train_parity", anchors=2, group=TRAIN_G, leaves=len(c_grads),
+        phase, options=options, anchors=2, group=group, leaves=len(c_grads),
         loss_rel_err=loss_err, component_rel_err=comp_err, loss_rtol=PARITY_LOSS_RTOL,
-        grad_rel_l2=grad_err, grad_rel_l2_tol=PARITY_GRAD_REL_L2,
+        grad_rel_l2=grad_err, grad_rel_l2_tol=PARITY_GRAD_REL_L2, grad_cpu_floor_rel_l2=floor,
+        floor_nudge=FLOOR_NUDGE, grad_conditioned=conditioned,
         surrogate_value_rel_err=sur_err, surrogate_leaf_max_err=leaf_err[worst], surrogate_worst_leaf=worst,
         surrogate_tol=SURROGATE_TOL, grad_scale=scale,
         worst_leaves=sorted(leaf_err.items(), key=lambda kv: -kv[1])[:5],
+        mask_bits=sum(int(m.numel()) for m in c_masks), mask_bits_differing=flips,
+        active_mask_bits=sum(int(m.sum()) for m in c_masks), margins=margins, margin_required=HC_MARGIN,
     )
+    check(flips == 0, f"{phase}: {flips} encoder mask bits differ card vs cpu (margins {margins})")
+    check(loss_err <= PARITY_LOSS_RTOL, f"{phase}: train loss card vs cpu: rel {loss_err}")
+    check(max(comp_err.values()) <= PARITY_LOSS_RTOL, f"{phase}: loss components card vs cpu: {comp_err}")
+    check(grad_err <= PARITY_GRAD_REL_L2 or not conditioned,
+          f"{phase}: train gradient card vs cpu: rel L2 {grad_err} (CPU nudge floor {floor})")
+    check(leaf_err[worst] <= SURROGATE_TOL, f"{phase}: surrogate gradient leaf {worst}: {leaf_err[worst]}")
 
 
 def kernel_entry(name, source, replaces, launches, result) -> dict:
@@ -796,6 +1112,7 @@ def main() -> int:
         import topo_audio_autoencoder_torch as port
         from topo_audio_autoencoder_torch import cuda_build, training
         from topo_audio_autoencoder_torch.ops import attention
+        from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
         from topo_audio_autoencoder_torch.ops import fused_samplers as fused
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the repo root", file=sys.stderr)
@@ -818,12 +1135,16 @@ def main() -> int:
         "masked_attention_fwd": attention.attention_fwd,
         "masked_attention_bwd": attention.attention_bwd,
         "binary_gumbel": fused.binary_gumbel_sample,
+        "hard_concrete": hc.hard_concrete_sample,
+        "hard_concrete_learned": hc.hard_concrete_learned_sample,
     }
     try:
         phase_kernel(torch, attention)
         phase_kernel_bwd(torch, attention)
         n = FLAGSHIP["num_vertices"]
-        sampler = phase_kernel_sampler(torch, fused, sum(math.comb(n, k) for k in range(1, 5)))
+        n_simplices = sum(math.comb(n, k) for k in range(1, 5))
+        sampler = phase_kernel_sampler(torch, fused, n_simplices)
+        hc_kernels = phase_kernel_hc(torch, hc, fused, n_simplices)
         model, codec = phase_serve(torch, port, counters)
         phase_main_attention(torch, attention, model, codec)
         phase_trace(torch, codec)
@@ -835,6 +1156,20 @@ def main() -> int:
         del tmodel, tstate, tstep
         torch.cuda.empty_cache()
         phase_train_parity(torch, port, training)
+        hmodel, hstate, hstep, hbatch, hc_launches = phase_train_hc(
+            torch, port, counters, "train_hc", HC_MODEL, HC_B, HC_G, HC_STEPS, training.LossWeights(),
+            ("hard_concrete",))
+        phase_train_trace(torch, hstate, hstep, hbatch, what="one Hard Concrete hard train step (fp32, B=32, G=1)")
+        del hmodel, hstate, hstep
+        torch.cuda.empty_cache()
+        _, _, _, _, learned_launches = phase_train_hc(
+            torch, port, counters, "train_hc_learned", HC_LEARNED_MODEL, TRAIN_B, TRAIN_G, HC_LEARNED_STEPS,
+            training.LossWeights(l0_penalty=HC_L0_PENALTY), ("hard_concrete_learned",))
+        torch.cuda.empty_cache()
+        phase_encode_hc(torch, port, counters)
+        phase_train_parity(torch, port, training, "train_parity_hc", HC_MODEL, group=HC_G)
+        phase_train_parity(torch, port, training, "train_parity_hc_learned", HC_LEARNED_MODEL,
+                           weights=training.LossWeights(l0_penalty=HC_L0_PENALTY))
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -849,6 +1184,12 @@ def main() -> int:
         kernel_entry("binary_gumbel", csrc + "binary_gumbel.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:216",
                      launches["binary_gumbel"], sampler),
+        kernel_entry("hard_concrete", csrc + "hard_concrete.cu",
+                     "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:61",
+                     hc_launches["hard_concrete"], hc_kernels["hard_concrete"]),
+        kernel_entry("hard_concrete_learned", csrc + "hard_concrete.cu",
+                     "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:127",
+                     learned_launches["hard_concrete_learned"], hc_kernels["hard_concrete_learned"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

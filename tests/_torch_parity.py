@@ -16,12 +16,19 @@ TINY = dict(num_vertices=5, num_bands=4, sccn_hidden_dim=8, n_sccn_layers=2)
 T = 1024
 
 _SCALARS = {"skip_weight": 0.1, "vertex_bias": 2.0, "attention_scale": 0.5}
+# The learned Hard Concrete stretch: softplus^-1 of its init (beta 2/3,
+# -gamma 0.1, zeta - 1 0.1), moved by 0.2 standard normals so that the
+# learned stretch differs from the fixed one, per rank.
+_HC_RAW = {"hc_beta_raw": 2.0 / 3.0, "hc_gamma_raw": 0.1, "hc_zeta_raw": 0.1}
 
 
 def _leaf(rng, path, shape):
     name = path[-1]
     if name in _SCALARS:
         return np.full(shape, _SCALARS[name], np.float32)
+    if name in _HC_RAW:
+        raw = np.log(np.expm1(_HC_RAW[name]))
+        return (raw + 0.2 * rng.standard_normal(shape)).astype(np.float32)
     if name.startswith("embed_rank"):
         return rng.standard_normal(shape).astype(np.float32)
     if name == "scale" or name.startswith("scale_"):
@@ -96,3 +103,42 @@ def waveforms(seed: int, batch: int, num_samples: int = T) -> np.ndarray:
     x = (amps * np.sin(2 * np.pi * freqs * t)).sum(axis=1)
     x += 0.05 * rng.standard_normal((batch, num_samples))
     return x[:, None, :].astype(np.float32)
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def hc_preclip(biased: np.ndarray, u, beta=2.0 / 3.0, gamma=-0.1, zeta=1.1) -> np.ndarray:
+    """The Hard Concrete gates before the clip, in float64: train mode with
+    uniforms ``u``, eval mode (the noiseless gate) with ``u`` None."""
+    a = biased.astype(np.float64)
+    if u is None:
+        s = _sigmoid(a)
+    else:
+        u = np.asarray(u, np.float64)
+        s = _sigmoid((np.log(u) - np.log1p(-u) + a) / beta)
+    return s * (zeta - gamma) + gamma
+
+
+def clip_margin(pre: np.ndarray) -> float:
+    """The smallest distance of a pre-clip gate from 0 and from 1. A gate
+    closer than the packages' rounding difference may clip on one side and
+    not on the other, and flip an attention mask bit."""
+    return float(min(np.abs(pre).min(), np.abs(pre - 1.0).min()))
+
+
+def draw_margin(u_ranks, p_ranks) -> float:
+    """The smallest distance of a uniform from the probability it is
+    compared with (a Bernoulli draw ``u < p``, or a threshold)."""
+    return float(min(np.abs(np.asarray(u, np.float64) - np.asarray(p, np.float64)).min()
+                     for u, p in zip(u_ranks, p_ranks)))
+
+
+def jax_hard_noise(key, rect_shapes) -> list:
+    """The uniforms ``jax.random.bernoulli`` draws for the four ranks from
+    the encoder's ``hard_rng`` (bernoulli(k, p) is uniform(k) < p)."""
+    import jax
+
+    keys = jax.random.split(key, 4)
+    return [np.array(jax.random.uniform(k, shape, np.float32)) for k, shape in zip(keys, rect_shapes)]

@@ -113,3 +113,41 @@ def test_create_is_seeded():
     assert float(w.std()) == pytest.approx(1 / np.sqrt(2048), rel=0.02)
     assert float(w.abs().max()) <= 2 / np.sqrt(2048) / 0.87962566103423978 + 1e-6
     assert float(a["encoder.embed_rank1"].std()) == pytest.approx(1.0, rel=0.2)
+
+
+# Hard Concrete models: the eval latent is continuous (soft) or binary to
+# an ulp (hard: the straight-through sum); pack_latent thresholds it at 0.5
+# in both packages. Bytes are compared where every latent value clears the
+# threshold by HC_MARGIN (a 1e-6 difference cannot flip a bit there).
+HC_MARGIN = 1e-4
+
+
+@pytest.mark.parametrize("options", [dict(sampler="hard_concrete"), dict(sampler="hard_concrete", hard=True),
+                                     dict(sampler="hard_concrete", learned_hc=True)],
+                         ids=["hc", "hc_hard", "hc_learned"])
+def test_hard_concrete_latent_packs_to_jax_bytes(options):
+    jm = JaxAutoencoder.create(**TINY, **options)
+    params = flax_params(jm)
+    x = waveforms(WAVE_SEED, 2)
+    want = jax_inf.Codec(jm, params).encode(jnp.asarray(x))
+    pcodec = pt_inf.Codec(port_model(params, **options), device="cpu")
+    got = pcodec.encode(x)
+    assert pcodec.model.geometry() == jm.geometry()
+    margin = min(float(np.abs(np.asarray(w) - 0.5).min()) for w in want.ranks)
+    assert margin > HC_MARGIN, f"a latent value within {margin} of the 0.5 threshold"
+    for g, w in zip(got.ranks, want.ranks):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    wire = pt_inf.pack_latent(got)
+    np.testing.assert_array_equal(wire, jax_inf.pack_latent(want))
+    # The wire round trip is the threshold, bit for bit, and decodes (after
+    # the re-rectification) to the JAX package's waveform.
+    back = pt_inf.unpack_latent(wire, jm.tables.num_vertices)
+    for g, b in zip(got.ranks, back.ranks):
+        np.testing.assert_array_equal(b.numpy(), (g.numpy() >= 0.5).astype(np.float32))
+    np.testing.assert_array_equal(pt_inf.pack_latent(back), wire)
+    want_wave = np.asarray(jax_inf.Codec(jm, params).decode(jax_inf.unpack_latent(wire, jm.tables.num_vertices),
+                                                            x.shape[-1]))
+    np.testing.assert_allclose(pcodec.decode(back, x.shape[-1]).numpy(), want_wave, atol=WAVE_ATOL)
+    if options.get("hard"):  # binary up to the straight-through sum's ulp
+        for g in got.ranks:
+            assert ((g - g.round()).abs() <= 1e-6).all()

@@ -102,3 +102,22 @@ def test_a_jax_train_state_converts():
     np.testing.assert_array_equal(
         model.encoder.mlp0.weight.detach().numpy(), params["params"]["encoder"]["mlp0"]["kernel"].T
     )
+
+
+def test_a_learned_hc_tree_converts():
+    """The learned stretch's [4] leaves (hc_beta_raw, hc_gamma_raw,
+    hc_zeta_raw) map by name, unchanged."""
+    options = dict(sampler="hard_concrete", learned_hc=True)
+    params = flax_params(JaxAutoencoder.create(**TINY, **options))
+    model = TorchAutoencoder.create(**TINY, num_samples=1024, device="cpu", **options)
+    sd = state_dict_from_flax(params, model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    assert len(sd) == len(dict(_leaves(params["params"])))
+    for name in ("hc_beta_raw", "hc_gamma_raw", "hc_zeta_raw"):
+        leaf = params["params"]["encoder"][name]
+        assert leaf.shape == (4,)
+        np.testing.assert_array_equal(getattr(model.encoder, name).detach().numpy(), leaf)
+    # A fixed-stretch model has no such parameters: the leaves are refused.
+    fixed = TorchAutoencoder.create(**TINY, num_samples=1024, device="cpu", sampler="hard_concrete")
+    with pytest.raises(KeyError, match="hc_"):
+        state_dict_from_flax(params, fixed.state_dict())

@@ -66,3 +66,26 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_kernel_build_digest_covers_sources_and_shared_headers(tmp_path, monkeypatch):
+    """An edit to a kernel's source or to a shared csrc/*.cuh header gives a
+    new library path, so a stale build is never loaded; every kernel of
+    KERNELS has its source, and the two samplers share philox.cuh."""
+    import shutil
+
+    from topo_audio_autoencoder_torch import cuda_build
+
+    assert {p.stem for p in cuda_build.CSRC.glob("*.cu")} == set(cuda_build.KERNELS)
+    for name in ("binary_gumbel", "hard_concrete"):
+        assert '#include "philox.cuh"' in (cuda_build.CSRC / f"{name}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    before = cuda_build.library_path("hard_concrete")
+    assert before == cuda_build.library_path("hard_concrete")
+    (csrc / "philox.cuh").write_text((csrc / "philox.cuh").read_text() + "\n// edited\n")
+    after_header = cuda_build.library_path("hard_concrete")
+    assert after_header != before
+    (csrc / "hard_concrete.cu").write_text((csrc / "hard_concrete.cu").read_text() + "\n// edited\n")
+    assert cuda_build.library_path("hard_concrete") not in (before, after_header)

@@ -163,3 +163,111 @@ def test_binary_gumbel_kernel_gradient(cuda):
     assert fused_samplers.binary_gumbel_sample.launches == before + 1
     sd = s.detach()
     torch.testing.assert_close(logits.grad, 2 * sd * 2 * sd * (1 - sd) / 0.7)
+
+
+# Hard Concrete (rows 4 and 5): z in [0, 1]; the kernel and the plain
+# version round the same fp32 operations (fp32: log/log1p/exp rounding,
+# scaled by the 1.2 stretch); bf16 output one ulp below 1 (2^-8).
+HC_TOL = {torch.float32: 2e-6, torch.bfloat16: 2 ** -8}
+HC_LOGITS = (32, 6195)  # the Hard Concrete train step: 32 anchors x 6,195 simplices
+
+
+def _hc_rows(cuda, cols, seed=3):
+    """Per-simplex stretch rows around the fixed one (beta 2/3, gamma -0.1,
+    zeta 1.1), as a learned model's would drift."""
+    rng = np.random.default_rng(seed)
+    beta = rng.uniform(0.4, 1.0, cols)
+    gamma = -rng.uniform(0.05, 0.2, cols)
+    zeta = 1.0 + rng.uniform(0.05, 0.2, cols)
+    return [torch.from_numpy(r.astype(np.float32)).to(cuda) for r in (beta, gamma, zeta)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("learned", [False, True], ids=["fixed", "learned"])
+def test_hard_concrete_kernel_matches_plain(cuda, dtype, learned):
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    rng = np.random.default_rng(2)
+    log_alpha = torch.from_numpy(rng.normal(0.5, 2.0, HC_LOGITS).astype(np.float32)).to(cuda, dtype)
+    rows = _hc_rows(cuda, HC_LOGITS[1])
+    if learned:
+        sample, plain, counter = (
+            lambda **kw: hc.hard_concrete_learned_sample(log_alpha, *rows, **kw),
+            lambda u: hc.hard_concrete_learned_plain(log_alpha, u, *rows),
+            hc.hard_concrete_learned_sample,
+        )
+    else:
+        sample, plain, counter = (
+            lambda **kw: hc.hard_concrete_sample(log_alpha, 2.0 / 3.0, **kw),
+            lambda u: hc.hard_concrete_plain(log_alpha, u, 2.0 / 3.0),
+            hc.hard_concrete_sample,
+        )
+    before = counter.launches
+    z, u = sample(seed=777, offset=5, return_noise=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert z.dtype == dtype and z.shape == log_alpha.shape and u.dtype == torch.float32
+    # The kernel's uniforms are the plain Philox stream, bit for bit.
+    assert torch.equal(u, fused_samplers.philox_uniform(log_alpha.numel(), 777, 5, cuda).reshape(z.shape))
+    want = plain(u)
+    assert (z.float() - want.float()).abs().max().item() <= HC_TOL[dtype]
+    # Clipped gates are exactly 0 or 1, and both occur.
+    assert ((z >= 0) & (z <= 1)).all()
+    assert (z == 0).any() and (z == 1).any()
+    # The injected-uniforms entry point, and reproducibility from (seed, offset).
+    assert (sample(noise=u).float() - want.float()).abs().max().item() <= HC_TOL[dtype]
+    assert torch.equal(sample(seed=777, offset=5), z)
+    assert not torch.equal(sample(seed=778, offset=5), z)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_hard_concrete_learned_kernel_with_fixed_rows_equals_fixed_kernel(cuda, dtype):
+    """Rows filled with (T, gamma, zeta) give row 4's gates bit for bit."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    log_alpha = torch.linspace(-6.0, 6.0, 4 * 6195, device=cuda).reshape(4, 6195).to(dtype)
+    rows = [torch.full((6195,), v, device=cuda) for v in (2.0 / 3.0, -0.1, 1.1)]
+    fixed = hc.hard_concrete_sample(log_alpha, 2.0 / 3.0, seed=9)
+    learned = hc.hard_concrete_learned_sample(log_alpha, *rows, seed=9)
+    assert torch.equal(fixed, learned)
+
+
+def test_hard_concrete_gate_statistics(cuda):
+    """Over 4M draws at log-alpha 0, T 2/3: the fractions of gates exactly 0
+    and exactly 1 are each sigmoid(T log(1/11)) = 0.1682 within 5 standard
+    errors, and P(z > 0) is the expected-L0 term."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+    from topo_audio_autoencoder_torch.ops.samplers import hard_concrete_l0_penalty
+
+    n = 1 << 22
+    z = hc.hard_concrete_sample(torch.zeros(n, device=cuda), 2.0 / 3.0, seed=2024)
+    p = 1.0 / (1.0 + np.exp(-(2.0 / 3.0) * np.log(1.0 / 11.0)))
+    tol = 5 * (p * (1 - p) / n) ** 0.5
+    assert abs((z == 0).float().mean().item() - p) <= tol
+    assert abs((z == 1).float().mean().item() - p) <= tol
+    l0 = hard_concrete_l0_penalty(torch.zeros(1), 2.0 / 3.0).item()
+    assert abs((z > 0).float().mean().item() - l0) <= tol
+
+
+def test_hard_concrete_kernel_gradients(cuda):
+    """The autograd Functions launch the kernels once each and give the
+    closed-form gradients."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    a = torch.linspace(-3.0, 3.0, 6195, device=cuda).repeat(16, 1).requires_grad_(True)
+    gen = torch.Generator().manual_seed(5)
+    before = hc.hard_concrete_sample.launches
+    z = hc.hard_concrete_fused_diff(a, gen, 0.7)
+    z.sum().backward()
+    assert hc.hard_concrete_sample.launches == before + 1
+    zd = z.detach()
+    s = ((zd + 0.1) / 1.2).clamp(1e-6, 1 - 1e-6)
+    want = ((zd > 0) & (zd < 1)).float() * s * (1 - s) * 1.2 / 0.7
+    torch.testing.assert_close(a.grad, want, rtol=1e-5, atol=1e-7)
+    rows = [r.requires_grad_(True) for r in _hc_rows(cuda, 6195)]
+    a.grad = None
+    before = hc.hard_concrete_learned_sample.launches
+    hc.hard_concrete_fused_learned_diff(a, gen, *rows).sum().backward()
+    assert hc.hard_concrete_learned_sample.launches == before + 1
+    assert all(r.grad is not None and r.grad.shape == (6195,) and torch.isfinite(r.grad).all() for r in rows)
+    assert torch.isfinite(a.grad).all()

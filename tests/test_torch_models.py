@@ -1,6 +1,8 @@
 """PyTorch port vs the JAX package at the tiny config: encoder logits and
 latent, SCCN, decoder, the full eval ``__call__`` and the train-mode
-``__call__`` on injected uniforms; the port's dropout.
+``__call__`` on injected uniforms; the Hard Concrete samplers (fixed and
+learned stretch) and the straight-through hard path, in training and in
+eval; the port's dropout.
 
 One jitted JAX forward, with the intermediates captured, serves every
 test; the port runs the same converted parameters on the same clips.
@@ -11,7 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import TINY, WAVE_SEED, flax_params, margin_mask, port_model, waveforms
+from _torch_parity import (
+    TINY,
+    WAVE_SEED,
+    clip_margin,
+    draw_margin,
+    flax_params,
+    hc_preclip,
+    jax_hard_noise,
+    margin_mask,
+    port_model,
+    waveforms,
+)
 
 from topo_audio_autoencoder_torch.topology import RectifiedProbs, build_operators
 from topo_audio_autoencoder_tpu.models import AudioAutoencoder as JaxAutoencoder
@@ -145,8 +158,9 @@ def test_train_mode_is_not_ported(params):
     """train=True against JAX: the sampled relaxation (on the uniforms JAX
     draws from its key), the SCCN's LayerNorms, the decoder. Dropout is off
     in both (flax's dropout stream cannot be reproduced; see the dropout
-    test). The name predates the port of the train path; the train-mode
-    options of a later slice (Hard Concrete, hard=True) still raise."""
+    test). The name predates the port of the train path; the options that
+    are still not ported (packed operators, jumping knowledge, max_rank
+    truncation) raise."""
     jm = JaxAutoencoder.create(**TINY, dropout=0.0)
     x = waveforms(WAVE_SEED, 2)
     rng = jax.random.PRNGKey(4)
@@ -167,7 +181,8 @@ def test_train_mode_is_not_ported(params):
     with torch.no_grad():
         plain = pm(torch.from_numpy(x), 0.5, train=True, noise=torch.from_numpy(u))
     np.testing.assert_allclose(plain.waveform.numpy(), got.waveform.numpy(), atol=1e-6)
-    for option in (dict(sampler="hard_concrete"), dict(hard=True), dict(learned_hc=True)):
+    for option in (dict(pack_capacities=(None, None, 8, 4)), dict(use_jumping_knowledge=True),
+                   dict(max_rank=1)):
         with pytest.raises(TypeError):
             type(pm).create(**TINY, device="cpu", **option)
 
@@ -203,3 +218,155 @@ def test_train_mode_draws_dropout_and_sampler_from_the_generator(setup):
     assert torch.isfinite(a.waveform).all()
     with pytest.raises(ValueError, match="generator"):
         pm(xt, 1.0, train=True)
+
+
+# The Hard Concrete and hard paths. Five models, each in train mode on the
+# uniforms JAX draws from its key (sampler and Bernoulli), in eval, and,
+# for the hard ones, in eval with a key (Bernoulli draws, as BASELINE
+# config 1 encodes).
+HC_COMBOS = {
+    "hc": dict(sampler="hard_concrete"),
+    "hc_learned": dict(sampler="hard_concrete", learned_hc=True),
+    "hc_hard": dict(sampler="hard_concrete", hard=True),
+    "hc_learned_hard": dict(sampler="hard_concrete", learned_hc=True, hard=True),
+    "gumbel_hard": dict(hard=True),
+}
+HC_CASES = [(c, m) for c in HC_COMBOS for m in ("train", "eval")] + [
+    (c, "eval_rng") for c, kw in HC_COMBOS.items() if kw.get("hard")
+]
+HC_TEMPERATURE = 0.5
+HC_RNG = 7
+# A gate whose pre-clip value lies within the packages' rounding difference
+# of 0 is exactly 0 on one side and ~1e-8 on the other, and flips its mask
+# bit; a uniform that close to its Bernoulli probability flips the draw.
+# Logits differ by ~2e-6 here, probabilities by less: every pre-clip gate
+# and every draw of the parity inputs must clear this margin (reported on
+# failure), which the seeds above are chosen to give.
+PARITY_MARGIN = 1e-4
+
+
+@pytest.fixture(scope="module")
+def hc_models():
+    cache = {}
+
+    def get(combo):
+        if combo not in cache:
+            jm = JaxAutoencoder.create(**TINY, dropout=0.0, **HC_COMBOS[combo])
+            params = flax_params(jm)
+            cache[combo] = (jm, params, port_model(params, dropout=0.0, **HC_COMBOS[combo]))
+        return cache[combo]
+
+    return get
+
+
+def _stretch(jm, params):
+    """Per-simplex (beta, gamma, zeta) of a learned model, in float64."""
+    enc = params["params"]["encoder"]
+    sp = lambda r: np.log1p(np.exp(enc[r].astype(np.float64)))  # noqa: E731
+    reps = np.asarray(jm.tables.sizes)
+    return (np.repeat(sp("hc_beta_raw"), reps), np.repeat(-sp("hc_gamma_raw"), reps),
+            np.repeat(1.0 + sp("hc_zeta_raw"), reps))
+
+
+@pytest.mark.parametrize("combo,mode", HC_CASES)
+def test_hard_concrete_and_hard_paths_match_jax(hc_models, combo, mode):
+    jm, params, pm = hc_models(combo)
+    kw = HC_COMBOS[combo]
+    x = waveforms(WAVE_SEED, 2)
+    train = mode == "train"
+    rng = None if mode == "eval" else jax.random.PRNGKey(HC_RNG)
+    out, state = jax.jit(lambda p, x: jm.apply(
+        p, x, HC_TEMPERATURE, rng, train, capture_intermediates=lambda m, n: n == "compute_logits",
+    ))(params, jnp.asarray(x))
+    logits = np.asarray(state["intermediates"]["encoder"]["compute_logits"][0])
+    biased = logits.copy()
+    biased[:, : jm.tables.num_vertices] += 2.0  # relu(vertex_bias)
+    rect = [np.asarray(p) for p in out.encoder_output.rectified]
+    u = hard_u = None
+    if rng is not None:
+        sample_rng, hard_rng = jax.random.split(rng)
+        if train and kw.get("sampler") == "hard_concrete":
+            u = np.array(jax.random.uniform(sample_rng, biased.shape, minval=1e-6, maxval=1.0 - 1e-6))
+        if kw.get("hard"):
+            hard_u = jax_hard_noise(hard_rng, [r.shape for r in rect])
+    if kw.get("sampler") == "hard_concrete":
+        beta, gamma, zeta = _stretch(jm, params) if kw.get("learned_hc") else (HC_TEMPERATURE, -0.1, 1.1)
+        margin = clip_margin(hc_preclip(biased, u if train else None, beta, gamma, zeta))
+        assert margin > PARITY_MARGIN, f"a pre-clip gate within {margin} of 0 or 1"
+    if kw.get("hard"):
+        draws = hard_u if hard_u is not None else [np.full_like(r, 0.5) for r in rect]
+        margin = draw_margin(draws, rect)
+        assert margin > PARITY_MARGIN, f"a Bernoulli draw within {margin} of its probability"
+
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x), HC_TEMPERATURE, train=train,
+                 noise=None if u is None else torch.from_numpy(u),
+                 hard_noise=None if hard_u is None else [torch.from_numpy(h) for h in hard_u])
+    enc, want = got.encoder_output, out.encoder_output
+    np.testing.assert_allclose(enc.logits.numpy(), logits, atol=LOGIT_ATOL)
+    for name in ("rectified", "probs"):
+        for g, w in zip(getattr(enc, name).ranks, getattr(want, name)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL, err_msg=name)
+    for g, w in zip(enc.masks, want.masks):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if kw.get("hard"):  # binary up to the straight-through sum's ulp
+        for p in enc.probs.ranks:
+            assert ((p - p.round()).abs() <= 1e-6).all()
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(out.valid))
+    np.testing.assert_allclose(enc.l0.numpy(), np.asarray(want.l0), atol=1e-6)
+    np.testing.assert_allclose(got.waveform.numpy(), np.asarray(out.waveform), atol=WAVE_ATOL)
+    assert pm.geometry() == jm.geometry()
+    assert pm.num_params() == jm.num_params(params)
+
+
+def test_hard_concrete_fused_and_plain_samplers_agree(hc_models):
+    """use_fused_sampler=False (the plain samplers of ops.samplers) gives
+    what the fused path gives on the same uniforms."""
+    x = torch.from_numpy(waveforms(WAVE_SEED, 2))
+    for combo in ("hc", "hc_learned_hard"):
+        _, _, pm = hc_models(combo)
+        u = torch.from_numpy(np.random.default_rng(3).uniform(1e-6, 1 - 1e-6, (2, pm.tables.total_simplices))
+                             .astype(np.float32))
+        hard_u = [torch.from_numpy(np.random.default_rng(4 + r).uniform(size=(2, s)).astype(np.float32))
+                  for r, s in enumerate(pm.tables.sizes)]
+        with torch.no_grad():
+            fused = pm(x, HC_TEMPERATURE, train=True, noise=u, hard_noise=hard_u)
+            pm.encoder.use_fused_sampler = False
+            try:
+                plain = pm(x, HC_TEMPERATURE, train=True, noise=u, hard_noise=hard_u)
+            finally:
+                pm.encoder.use_fused_sampler = True
+        np.testing.assert_allclose(plain.waveform.numpy(), fused.waveform.numpy(), atol=1e-6)
+
+
+def test_learned_hc_init_matches_fixed_stretch():
+    """learned_hc at its inits (beta 2/3, gamma -0.1, zeta 1.1) samples as
+    the fixed stretch at T = 2/3, and ignores the temperature argument."""
+    from topo_audio_autoencoder_torch.models import AudioAutoencoder as TorchAutoencoder
+
+    kw = dict(**TINY, num_samples=1024, device="cpu", sampler="hard_concrete", use_fused_sampler=False,
+              dropout=0.0)
+    fixed = TorchAutoencoder.create(**kw, seed=5)
+    learned = TorchAutoencoder.create(**kw, seed=5, learned_hc=True)
+    for r in ("hc_beta_raw", "hc_gamma_raw", "hc_zeta_raw"):
+        assert getattr(learned.encoder, r).shape == (4,)
+    x = torch.from_numpy(waveforms(60, 2))
+    u = torch.from_numpy(np.random.default_rng(64).uniform(1e-6, 1 - 1e-6, (2, fixed.tables.total_simplices))
+                         .astype(np.float32))
+    with torch.no_grad():
+        of = fixed(x, 2.0 / 3.0, train=True, noise=u)
+        ol = learned(x, 123.0, train=True, noise=u)  # the temperature argument is ignored
+    for a, b in zip(of.encoder_output.probs.ranks, ol.encoder_output.probs.ranks):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+    np.testing.assert_allclose(of.aux["l0"].numpy(), ol.aux["l0"].numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("option,match", [
+    (dict(sampler="bernoulli"), "sampler must be"),
+    (dict(learned_hc=True), "learned_hc requires"),
+])
+def test_sampler_options_are_checked(option, match):
+    from topo_audio_autoencoder_torch.models import AudioAutoencoder as TorchAutoencoder
+
+    with pytest.raises(ValueError, match=match):
+        TorchAutoencoder.create(**TINY, num_samples=1024, device="cpu", **option)

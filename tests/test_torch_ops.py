@@ -379,3 +379,158 @@ def test_gelu_is_the_tanh_form():
         _gelu(torch.from_numpy(x)).numpy(), np.asarray(jax.nn.gelu(jnp.asarray(x), approximate=True)),
         rtol=1e-6, atol=1e-6,
     )
+
+
+# The Hard Concrete gate (fixed and per-simplex stretch). z in [0, 1]; fp32
+# log/log1p/sigmoid in both packages on the same uniforms.
+HC_ATOL = 1e-6
+HC_GAMMA, HC_ZETA = -0.1, 1.1
+
+
+def _hc_inputs(shape=(3, 40), seed=6):
+    """Log-alpha, a JAX key and its uniforms, and per-simplex stretch rows
+    around the fixed one; every pre-clip gate (train and eval) at least
+    1e-4 from 0 and 1, so rounding cannot move a gate across the clip."""
+    from _torch_parity import clip_margin, hc_preclip
+
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0.5, 2.0, shape).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    u = _jax_uniforms(key, shape)
+    cols = shape[-1]
+    beta = rng.uniform(0.4, 1.0, cols).astype(np.float32)
+    gamma = (-rng.uniform(0.05, 0.2, cols)).astype(np.float32)
+    zeta = (1.0 + rng.uniform(0.05, 0.2, cols)).astype(np.float32)
+    for b, g, z in ((0.7, HC_GAMMA, HC_ZETA), (beta, gamma, zeta)):
+        for uu in (u, None):
+            assert clip_margin(hc_preclip(a, uu, b, g, z)) > 1e-4
+    return a, key, u, (beta, gamma, zeta)
+
+
+@pytest.mark.parametrize("stretch", ["fixed", "per_simplex"])
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_hard_concrete_matches_jax(stretch, training):
+    a, key, u, (beta, gamma, zeta) = _hc_inputs()
+    if stretch == "fixed":
+        temp, jp, pp = 0.7, jax_samplers.HardConcreteParams(), pt_samplers.HardConcreteParams()
+        jt = pt_t = temp
+    else:
+        jt, jp = jnp.asarray(beta), jax_samplers.HardConcreteParams(jnp.asarray(gamma), jnp.asarray(zeta))
+        pt_t, pp = torch.from_numpy(beta), pt_samplers.HardConcreteParams(torch.from_numpy(gamma),
+                                                                           torch.from_numpy(zeta))
+    want = np.asarray(jax_samplers.hard_concrete(jnp.asarray(a), key, jt, jp, training))
+    got = pt_samplers.hard_concrete(torch.from_numpy(a), None, pt_t, pp, training,
+                                    noise=torch.from_numpy(u) if training else None)
+    np.testing.assert_allclose(got.numpy(), want, atol=HC_ATOL)
+    assert (got == 0).any() and (got == 1).any()  # both clips occur
+    want_l0 = np.asarray(jax_samplers.hard_concrete_l0_penalty(jnp.asarray(a), jt, jp))
+    got_l0 = pt_samplers.hard_concrete_l0_penalty(torch.from_numpy(a), pt_t, pp)
+    np.testing.assert_allclose(got_l0.numpy(), want_l0, atol=HC_ATOL)
+    if training:
+        with pytest.raises(ValueError, match="generator or noise"):
+            pt_samplers.hard_concrete(torch.from_numpy(a), None, pt_t, pp, True)
+
+
+def test_hard_concrete_keeps_the_log_alpha_dtype():
+    a = torch.zeros(4, 7, dtype=torch.bfloat16)
+    u = torch.full((4, 7), 0.3)
+    assert pt_samplers.hard_concrete(a, None, torch.tensor(0.7), noise=u).dtype == torch.bfloat16
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as pt_hc
+
+    assert pt_hc.hard_concrete_sample(a, 0.7, noise=u).dtype == torch.bfloat16
+    rows = [torch.full((7,), v) for v in (0.7, -0.1, 1.1)]
+    assert pt_hc.hard_concrete_learned_sample(a, *rows, noise=u).dtype == torch.bfloat16
+
+
+# The closed-form backward against jax.vjp of the JAX custom VJPs: the same
+# fp32 formulas on the same z, summed over the batch in another order.
+HC_GRAD_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_hard_concrete_fused_gradient_matches_jax(training):
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as pt_hc
+
+    a, key, u, _ = _hc_inputs()
+    ct = np.random.default_rng(9).standard_normal(a.shape).astype(np.float32)
+    z_want, vjp = jax.vjp(lambda x: jax_pk.hard_concrete_fused_diff(x, key, 0.7, training), jnp.asarray(a))
+    (want,) = vjp(jnp.asarray(ct))
+    at = torch.from_numpy(a).requires_grad_(True)
+    z = pt_hc.hard_concrete_fused_diff(at, None, 0.7, training, noise=torch.from_numpy(u))
+    z.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(z.detach().numpy(), np.asarray(z_want), atol=HC_ATOL)
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(want), rtol=HC_GRAD_RTOL, atol=1e-7)
+    assert (at.grad[(z == 0) | (z == 1)] == 0).all()  # clipped gates take none
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_hard_concrete_fused_learned_gradients_match_jax(training):
+    """d log-alpha and the [S] stretch cotangents (eval: d beta is zero)."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as pt_hc
+
+    a, key, u, rows = _hc_inputs()
+    ct = np.random.default_rng(10).standard_normal(a.shape).astype(np.float32)
+    z_want, vjp = jax.vjp(
+        lambda x, b, g, z: jax_pk.hard_concrete_fused_learned_diff(x, key, b, g, z, training),
+        jnp.asarray(a), *map(jnp.asarray, rows))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(ct))]
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (a, *rows)]
+    z = pt_hc.hard_concrete_fused_learned_diff(leaves[0], None, *leaves[1:], training, noise=torch.from_numpy(u))
+    z.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(z.detach().numpy(), np.asarray(z_want), atol=HC_ATOL)
+    for name, leaf, w in zip(("log_alpha", "beta", "gamma", "zeta"), leaves, want):
+        assert leaf.grad.shape == w.shape, name
+        np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=HC_GRAD_RTOL, atol=1e-6, err_msg=name)
+    if not training:
+        assert (leaves[1].grad == 0).all()
+
+
+def test_hard_concrete_wrappers_on_cpu():
+    """On the CPU the wrappers run the plain versions, bit for bit, on the
+    Philox stream of (seed, offset); no kernel is launched."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as pt_hc
+
+    a = torch.from_numpy(np.random.default_rng(2).normal(0.5, 2.0, (4, 37)).astype(np.float32))
+    rows = [torch.from_numpy(r) for r in _hc_inputs((4, 37))[3]]
+    before = (pt_hc.hard_concrete_sample.launches, pt_hc.hard_concrete_learned_sample.launches)
+    u_seed = pt_fused.philox_uniform(a.numel(), 9, 2).reshape(a.shape)
+    z, u = pt_hc.hard_concrete_sample(a, 0.7, seed=9, offset=2, return_noise=True)
+    assert torch.equal(u, u_seed)
+    assert torch.equal(z, pt_hc.hard_concrete_plain(a, u_seed, 0.7))
+    zl, ul = pt_hc.hard_concrete_learned_sample(a, *rows, seed=9, offset=2, return_noise=True)
+    assert torch.equal(ul, u_seed)
+    assert torch.equal(zl, pt_hc.hard_concrete_learned_plain(a, u_seed, *rows))
+    assert (pt_hc.hard_concrete_sample.launches, pt_hc.hard_concrete_learned_sample.launches) == before
+    # The plain version is the sampler of ops.samplers on those uniforms.
+    np.testing.assert_allclose(z.numpy(), pt_samplers.hard_concrete(a, None, 0.7, noise=u_seed).numpy(), atol=HC_ATOL)
+    # Rows equal to the fixed stretch give the fixed gates bit for bit.
+    fixed_rows = [torch.full((37,), v) for v in (0.7, HC_GAMMA, HC_ZETA)]
+    assert torch.equal(pt_hc.hard_concrete_learned_sample(a, *fixed_rows, seed=9, offset=2), z)
+    assert not torch.equal(pt_hc.hard_concrete_sample(a, 0.7, seed=10, offset=2), z)
+    g1, g2 = torch.Generator().manual_seed(4), torch.Generator().manual_seed(4)
+    assert torch.equal(pt_hc.hard_concrete_fused_diff(a, g1, 0.7), pt_hc.hard_concrete_fused_diff(a, g2, 0.7))
+    with pytest.raises(ValueError, match="positive"):
+        pt_hc.hard_concrete_sample(a, 0.0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        pt_hc.hard_concrete_sample(a.to("meta"), 1.0)
+    with pytest.raises(ValueError, match="row"):
+        pt_hc.hard_concrete_learned_sample(a, rows[0][:5], *rows[1:])
+    with pytest.raises(ValueError, match="generator or noise"):
+        pt_hc.hard_concrete_fused_diff(a, None, 0.7)
+
+
+def test_bernoulli_ste_matches_jax():
+    """u < p on the uniforms jax.random.bernoulli draws from its key, with
+    the gradient routed to the logits."""
+    rng = np.random.default_rng(12)
+    p = rng.uniform(size=(3, 50)).astype(np.float32)
+    logits = rng.standard_normal((3, 50)).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    want = np.asarray(jax_samplers.bernoulli_ste(jnp.asarray(p), jnp.asarray(logits), key))
+    u = np.array(jax.random.uniform(key, p.shape, jnp.float32))
+    assert np.abs(u - p).min() > 1e-6
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    got = pt_samplers.bernoulli_ste(torch.from_numpy(p), lt, torch.from_numpy(u))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6)
+    got.sum().backward()
+    assert (lt.grad == 1).all()

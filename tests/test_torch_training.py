@@ -270,9 +270,11 @@ def test_parameters_after_updates_follow_jax(run, port):
     assert checked > 1000
 
 
-def _jax_surrogate(jm, w):
+def _jax_surrogate(jm, w, temperature=TEMPERATURE):
     """The JAX train step's forward (train_step.py loss_fn) with the
-    spectral distance replaced by <recon, w>: well conditioned."""
+    spectral distance replaced by <recon, w>: well conditioned. G = 1
+    drops the contrastive term; the expected-L0 term (zero for the Gumbel
+    sampler) is added as it is."""
 
     def f(params, batch, rng):
         b, g, _, t = batch.shape
@@ -281,28 +283,29 @@ def _jax_surrogate(jm, w):
         bands = jm.pqmf.forward(flat)
         logits = jm.apply(params, jnp.swapaxes(bands, -1, -2), True, rngs={"dropout": drng},
                           method=lambda m, x, tr: m.encoder.compute_logits(x, tr))
-        contrastive = info_nce_loss(logits.reshape(b, g, -1))
-        enc = jm.apply(params, logits.reshape(b, g, -1)[:, 0], TEMPERATURE, srng, True,
+        contrastive = info_nce_loss(logits.reshape(b, g, -1)) if g >= 3 else 0.0
+        enc = jm.apply(params, logits.reshape(b, g, -1)[:, 0], temperature, srng, True,
                        method=lambda m, l, tp, r, tr: m.encoder.generate_complex(l, tp, r, tr))
         recon = jm.apply(params, enc, t // jm.num_bands, True, rngs={"dropout": drng},
                          method=lambda m, e, dl, tr: m.decode(e, dl, tr))
         reg = rank_diversity_entropy(enc.rectified).mean() + vertex_count_penalty(
             enc.rectified.vertices, jm.min_active_vertices, jm.max_active_vertices).mean()
-        return (recon * w).sum() + contrastive + reg
+        return (recon * w).sum() + contrastive + reg + enc.l0.mean()
 
     return f
 
 
-def _port_surrogate(pm, batch, noise, w):
+def _port_surrogate(pm, batch, noise, w, temperature=TEMPERATURE, hard_noise=None):
     b, g, _, t = batch.shape
     flat = batch.reshape(b * g, 1, t)
     logits = pm.encoder.compute_logits(pm.pqmf(flat).transpose(-1, -2), True)
-    contrastive = pt_info_nce(logits.reshape(b, g, -1))
-    enc = pm.encoder.generate_complex(logits.reshape(b, g, -1)[:, 0], TEMPERATURE, True, noise=noise)
+    contrastive = pt_info_nce(logits.reshape(b, g, -1)) if g >= 3 else 0.0
+    enc = pm.encoder.generate_complex(logits.reshape(b, g, -1)[:, 0], temperature, True, noise=noise,
+                                      hard_noise=hard_noise)
     recon = pm.decode(enc, t // pm.num_bands, True)
     reg = pt_entropy(enc.rectified).mean() + pt_count_penalty(
         enc.rectified.vertices, pm.min_active_vertices, pm.max_active_vertices).mean()
-    return (recon * w).sum() + contrastive + reg
+    return (recon * w).sum() + contrastive + reg + enc.l0.mean()
 
 
 # Every gradient leaf of the surrogate: fp32 in both, sums in other orders;

@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of topo_audio_autoencoder_tpu: the codec's eval path
-and the train step.
+and the train step, with the binary-Gumbel and the Hard Concrete samplers
+(fixed or learned stretch) and the straight-through ``hard`` path.
 
 The JAX package stays the reference; this package imports nothing of it
 (and not JAX). Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``. The hand-written kernels on these paths (the masked
-cross-attention forward and backward, the binary-Gumbel sampler) live in
-``csrc/`` and are built on first use.
+cross-attention forward and backward, the binary-Gumbel sampler, the two
+Hard Concrete samplers) live in ``csrc/`` and are built on first use.
 """
 
 from .inference import Codec, SimplicialLatent, pack_latent, unpack_latent

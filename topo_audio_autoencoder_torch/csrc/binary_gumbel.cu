@@ -9,15 +9,10 @@
 // (log u - log1p(-u) is a standard logistic sample: the difference of the
 // two Gumbels of the binary Gumbel-softmax).
 //
-// The generator is Philox4x32-10 (Salmon et al., SC'11), written out below
-// and keyed by the 64-bit seed; the 128-bit counter is (group index, 64-bit
-// offset). Thread g draws one Philox block for elements 4g .. 4g+3 and
-// turns word j into u = (word_j >> 8) * 2^-24, clipped to [1e-6, 1 - 1e-6].
-// The shift is on unsigned 32-bit words: the TPU kernel's bits were signed
-// and an arithmetic shift once skewed its uniforms into (0, 0.5)
-// (pallas_kernels.py:37-48). The stream is defined by (seed, offset) and
-// this file alone; ops/fused_samplers.py computes the same words in plain
-// torch, and the two agree bit for bit.
+// The uniforms come from csrc/philox.cuh: Philox4x32-10 keyed by the
+// 64-bit seed, counter (group index, 64-bit offset), four elements per
+// group. ops/fused_samplers.py computes the same stream in plain torch, and
+// the two agree bit for bit.
 //
 // Two entry points share the device function `relax`: one draws u from
 // (seed, offset) and can also write it out (for checks against the plain
@@ -34,50 +29,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-// Philox4x32-10: ten rounds, the key bumped between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    if (round > 0) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    const uint32_t lo0 = kPhiloxM0 * ctr.x;
-    const uint32_t hi0 = __umulhi(kPhiloxM0, ctr.x);
-    const uint32_t lo1 = kPhiloxM1 * ctr.z;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, ctr.z);
-    ctr = make_uint4(hi1 ^ ctr.y ^ k0, lo1, hi0 ^ ctr.w ^ k1, lo0);
-  }
-  return ctr;
-}
-
-__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
-  const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);  // logical shift: unsigned
-  return fminf(fmaxf(u, 1e-6f), 1.0f - 1e-6f);
-}
+using namespace sampler;
 
 __device__ __forceinline__ float relax(float l, float u, float inv_t) {
-  const float noise = logf(u) - log1pf(-u);
-  const float z = (2.0f * l - 1.0f + noise) * inv_t;
+  const float z = (2.0f * l - 1.0f + logistic(u)) * inv_t;
   return 1.0f / (1.0f + expf(-z));
 }
 
@@ -90,8 +49,7 @@ __global__ void __launch_bounds__(256) philox_kernel(const T* __restrict__ logit
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t base = g * 4;
   if (base >= n) return;
-  const uint4 r = philox4x32_10(
-      make_uint4((uint32_t)g, (uint32_t)((uint64_t)g >> 32), off_lo, off_hi), seed_lo, seed_hi);
+  const uint4 r = philox_block(g, seed_lo, seed_hi, off_lo, off_hi);
   const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<digest>.so``,
-where the digest covers the source and the flags, so an edited source is
-never served from a stale build. The library is loaded with ``ctypes``.
+where the digest covers the source, every shared header ``csrc/*.cuh`` and
+the flags, so an edited source or header is never served from a stale
+build. The library is loaded with ``ctypes``.
 Nothing is built when the package is imported: ``load`` builds on first
 use, and ``build`` compiles several sources at once, one ``nvcc`` process
 each, all started together.
@@ -22,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("masked_attention_fwd", "masked_attention_bwd", "binary_gumbel")
+KERNELS = ("masked_attention_fwd", "masked_attention_bwd", "binary_gumbel", "hard_concrete")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -4,8 +4,9 @@ waveform, and the bit-packed wire format.
 Port of ``topo_audio_autoencoder_tpu.inference`` (without the parameter
 save/load, which comes with the checkpoint slice).
 
-- ``Codec.encode``: waveform -> per-rank binary latent (the deterministic
-  eval path: threshold, rectify).
+- ``Codec.encode``: waveform -> per-rank latent (the deterministic eval
+  path: the noiseless relaxation, rectified; binary for the Gumbel sampler
+  and for ``hard`` models, continuous for a soft Hard Concrete model).
 - ``Codec.decode``: latent -> waveform, rebuilding embeddings and operators
   from the latent alone.
 - ``Codec.reconstruct``: encode + decode in one forward.
@@ -82,8 +83,12 @@ def pack_latent(latent) -> np.ndarray:
     """Latent -> ``[..., ceil(S_total/8)]`` uint8 bitstream.
 
     Ranks concatenate in order (vertices, edges, triangles, tetra) along the
-    last axis before packing. Binarization thresholds at 0.5, lossless for
-    the binary latents of the Gumbel eval path.
+    last axis before packing. Binarization thresholds at 0.5: lossless for
+    the binary latents of the Gumbel eval path; a Hard Concrete model's
+    eval latent is continuous (``hard=False``) or binary only to an ulp
+    (``hard=True``: the straight-through sum), and quantizes here.
+    ``Codec.decode`` re-rectifies, so a thresholded latent decodes as a
+    valid complex.
     """
     def host(r):
         return r.detach().cpu().numpy() if isinstance(r, torch.Tensor) else np.asarray(r)

@@ -1,10 +1,13 @@
 """Autoencoder facade: PQMF -> encoder -> complex -> decoder -> PQMF^-1.
 
-Port of ``topo_audio_autoencoder_tpu.models.autoencoder`` for the binary
-Gumbel sampler (``hard=False``) and the dense masked-static operators, in
-training (``train=True``: dropout, the sampled relaxation, the SCCN's
-LayerNorms) and in eval (the relaxation thresholded at 0.5). Waveforms are
-NCW ``[B, 1, T]`` at the facade; internals are channels-last.
+Port of ``topo_audio_autoencoder_tpu.models.autoencoder`` for both
+samplers (binary Gumbel, Hard Concrete with a fixed or learned stretch),
+the soft and the straight-through ``hard`` paths, and the dense
+masked-static operators, in training (``train=True``: dropout, the sampled
+relaxation, the SCCN's LayerNorms) and in eval (the noiseless relaxation).
+Waveforms are NCW ``[B, 1, T]`` at the facade; internals are
+channels-last. Packed operators, jumping knowledge and ``max_rank``
+truncation are not ported: ``create`` refuses them as unknown arguments.
 
 ``AudioAutoencoder.create`` builds the model on ``cuda`` unless the caller
 passes ``device="cpu"``, and raises when no card is present and none was
@@ -56,6 +59,9 @@ class AudioAutoencoder(nn.Module):
         num_samples: int = 64000,
         dropout: float = 0.1,
         use_fused_sampler: bool = True,
+        hard: bool = False,
+        sampler: str = "gumbel",
+        learned_hc: bool = False,
     ):
         super().__init__()
         self.tables = tables
@@ -67,7 +73,8 @@ class AudioAutoencoder(nn.Module):
         self.num_samples = num_samples
         self.pqmf = PQMF(attenuation=pqmf_attenuation, n_band=num_bands)
         self.encoder = AudioEncoder(
-            tables, num_bands, sccn_hidden_dim, num_samples, dropout, use_fused_sampler
+            tables, num_bands, sccn_hidden_dim, num_samples, dropout, use_fused_sampler,
+            hard=hard, sampler=sampler, learned_hc=learned_hc,
         )
         self.decoder = AudioDecoder(
             sccn_hidden_dim=sccn_hidden_dim,
@@ -91,11 +98,15 @@ class AudioAutoencoder(nn.Module):
         device=None,
         dropout: float = 0.1,
         use_fused_sampler: bool = True,
+        hard: bool = False,
+        sampler: str = "gumbel",
+        learned_hc: bool = False,
     ) -> "AudioAutoencoder":
         """Build tables, filterbank and seeded weights, on ``device``
         (default ``cuda``). ``num_samples`` is the clip length the encoder's
-        MLP is sized for (flax infers it from the first call). ``dropout``
-        and ``use_fused_sampler`` have the JAX package's defaults."""
+        MLP is sized for (flax infers it from the first call). ``dropout``,
+        ``use_fused_sampler``, ``hard``, ``sampler`` and ``learned_hc`` have
+        the JAX package's defaults and meanings."""
         device = resolve_device(device)
         model = cls(
             tables=build_tables(num_vertices),
@@ -108,6 +119,9 @@ class AudioAutoencoder(nn.Module):
             num_samples=num_samples,
             dropout=dropout,
             use_fused_sampler=use_fused_sampler,
+            hard=hard,
+            sampler=sampler,
+            learned_hc=learned_hc,
         )
         model.reset_parameters(seed)
         return model.to(device).eval()
@@ -129,12 +143,15 @@ class AudioAutoencoder(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
+        hard_noise=None,
     ) -> EncoderOutput:
         """[B, 1, T] -> EncoderOutput. In training, ``generator`` draws the
         dropout masks and the sampler's seed; ``noise`` (uniforms [B, S])
-        replaces the sampler's draw."""
+        replaces the sampler's draw. With ``hard``, ``generator`` (in eval
+        too) or ``hard_noise`` (four per-rank uniform tensors) gives the
+        Bernoulli draws; with neither they threshold at 0.5."""
         bands = self.pqmf(x)  # [B, M, T/M]
-        return self.encoder(bands.transpose(-1, -2), temperature, train, generator, noise)
+        return self.encoder(bands.transpose(-1, -2), temperature, train, generator, noise, hard_noise)
 
     def decode(
         self, enc: EncoderOutput, desired_length: int | None = None, train: bool = False
@@ -149,7 +166,8 @@ class AudioAutoencoder(nn.Module):
     ) -> torch.Tensor:
         """Decode straight from a per-rank probability latent: embeddings and
         operators are rebuilt from the latent alone. The latent is
-        re-rectified first (idempotent on valid latents)."""
+        re-rectified first: idempotent on valid latents, and it restores
+        face closure to a thresholded Hard Concrete latent."""
         rect = enforce_constraints(*probs.ranks, self.tables)
         masks = tuple((p > 0).to(p.dtype) for p in rect.ranks)
         ops = build_operators(rect, self.tables, masks=masks)
@@ -163,9 +181,9 @@ class AudioAutoencoder(nn.Module):
             "bands": self.num_bands,
             "hidden": self.sccn_hidden_dim,
             "layers": self.n_sccn_layers,
-            "sampler": "gumbel",
-            "hard": False,
-            "learned_hc": False,
+            "sampler": self.encoder.sampler,
+            "hard": self.encoder.hard,
+            "learned_hc": self.encoder.learned_hc,
             "min_active_vertices": self.min_active_vertices,
             "max_active_vertices": self.max_active_vertices,
             "pack_capacities": None,
@@ -178,8 +196,9 @@ class AudioAutoencoder(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
+        hard_noise=None,
     ) -> AutoencoderOutput:
-        enc = self.encode(x, temperature, train, generator, noise)
+        enc = self.encode(x, temperature, train, generator, noise, hard_noise)
         wav = self.decode(enc, x.shape[-1] // self.num_bands, train)
         aux = {
             "binary_entropy": rank_diversity_entropy(enc.rectified),

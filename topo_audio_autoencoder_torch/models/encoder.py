@@ -1,8 +1,9 @@
 """Audio encoder: PQMF bands -> conv stacks -> simplex logits -> complex.
 
-Port of ``topo_audio_autoencoder_tpu.models.encoder`` for
-``sampler="gumbel"``, ``hard=False`` and the dense masked-static operators,
-in training and in eval.
+Port of ``topo_audio_autoencoder_tpu.models.encoder`` for both samplers
+(binary Gumbel and Hard Concrete, with a fixed or a learned per-rank
+stretch), the soft and the straight-through ``hard`` paths, and the dense
+masked-static operators, in training and in eval.
 
 - The 16 per-band conv stacks are one grouped conv per stage (``groups`` =
   number of bands), channels band-major, so the per-band GroupNorm becomes
@@ -12,20 +13,29 @@ in training and in eval.
 - Flax's LayerNorm and GroupNorm use eps 1e-6 and ``nn.gelu`` is the tanh
   approximation; the port sets both explicitly.
 - Randomness comes from explicit ``torch.Generator``s (dropout in the MLP,
-  the sampler's seed) or, for the sampler, from injected uniforms
-  (``noise=``): flax's streams cannot be reproduced in torch.
+  the sampler's seed, the hard path's Bernoulli draws) or from injected
+  uniforms (``noise=`` for the relaxation, ``hard_noise=`` for the four
+  per-rank Bernoulli draws): flax's streams cannot be reproduced in torch.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_hard_concrete import hard_concrete_fused_diff, hard_concrete_fused_learned_diff
 from ..ops.fused_samplers import binary_gumbel_fused_diff
-from ..ops.samplers import binary_gumbel
+from ..ops.samplers import (
+    HardConcreteParams,
+    binary_gumbel,
+    hard_concrete,
+    hard_concrete_l0_penalty,
+    straight_through,
+)
 from ..topology.builder import SimplicialOperators, build_operators
 from ..topology.complexes import ComplexTables
 from ..topology.rectifier import RectifiedProbs, enforce_constraints
@@ -82,11 +92,11 @@ class EncoderOutput(NamedTuple):
     logits: torch.Tensor  # [B, S_total] raw simplex logits (pre vertex bias)
     embeddings: tuple  # per-rank [B, S_r, C], zero rows when inactive
     ops: SimplicialOperators
-    probs: RectifiedProbs  # per-rank output probabilities
+    probs: RectifiedProbs  # per-rank output probabilities (STE'd if hard)
     rectified: RectifiedProbs  # soft rectified probabilities
     masks: tuple  # per-rank {0,1} active masks [B, S_r]
     valid: torch.Tensor  # [B] bool: at least one active vertex
-    l0: torch.Tensor  # [B] zeros for the Gumbel sampler
+    l0: torch.Tensor  # [B] expected share of open Hard Concrete gates; zeros for Gumbel
 
 
 class BandEncoder(nn.Module):
@@ -112,12 +122,28 @@ class BandEncoder(nn.Module):
         return self.forward_ncw(x.transpose(1, 2)).transpose(1, 2)
 
 
+def _inv_softplus(x: float) -> float:
+    return float(np.log(np.expm1(x)))
+
+
+# The learned stretch's raw parameters and their inits: softplus of each
+# gives the fixed stretch (beta = 2/3 per Louizos et al. 2018, -gamma =
+# 0.1, zeta - 1 = 0.1), so an untrained learned_hc model samples as the
+# fixed-stretch one does.
+HC_RAW_INIT = {"hc_beta_raw": 2.0 / 3.0, "hc_gamma_raw": 0.1, "hc_zeta_raw": 0.1}
+
+
 class AudioEncoder(nn.Module):
     """Waveform bands -> simplex logits -> rectified complex.
 
+    ``sampler`` is ``"gumbel"`` (binary Gumbel) or ``"hard_concrete"``;
+    ``learned_hc`` learns the Hard Concrete stretch per rank; ``hard``
+    Bernoulli-samples (or, without randomness, thresholds) the rectified
+    probabilities, re-rectifies, and straight-throughs to the logits.
     ``use_fused_sampler`` (the default, as in the JAX package) samples the
-    train-mode relaxation through ``ops.fused_samplers`` (a CUDA kernel on
-    the card); ``False`` takes the plain ``ops.samplers.binary_gumbel``.
+    train-mode relaxation through ``ops.fused_samplers`` or
+    ``ops.fused_hard_concrete`` (CUDA kernels on the card); ``False`` takes
+    the plain samplers of ``ops.samplers``.
     """
 
     def __init__(
@@ -128,10 +154,20 @@ class AudioEncoder(nn.Module):
         num_samples: int = 64000,
         dropout: float = 0.1,
         use_fused_sampler: bool = True,
+        hard: bool = False,
+        sampler: str = "gumbel",
+        learned_hc: bool = False,
     ):
         super().__init__()
+        if sampler not in ("gumbel", "hard_concrete"):
+            raise ValueError(f"sampler must be 'gumbel' or 'hard_concrete', got {sampler!r}")
+        if learned_hc and sampler != "hard_concrete":
+            raise ValueError("learned_hc requires sampler='hard_concrete'")
         self.dropout = dropout
         self.use_fused_sampler = use_fused_sampler
+        self.hard = hard
+        self.sampler = sampler
+        self.learned_hc = learned_hc
         self.tables = tables
         self.sizes = tables.sizes
         self.total_simplices = tables.total_simplices
@@ -164,6 +200,9 @@ class AudioEncoder(nn.Module):
                 f"embed_rank{r}", nn.Parameter(torch.empty(self.sizes[r], embedding_dim))
             )
             self.add_module(f"embed_norm{r}", layer_norm(embedding_dim))
+        if learned_hc:
+            for name in HC_RAW_INIT:
+                self.register_parameter(name, nn.Parameter(torch.empty(4)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for module in self.modules():
@@ -173,6 +212,24 @@ class AudioEncoder(nn.Module):
             self.vertex_bias.fill_(2.0)
             for r in range(4):
                 getattr(self, f"embed_rank{r}").normal_(0.0, 1.0, generator=generator)
+            if self.learned_hc:
+                for name, value in HC_RAW_INIT.items():
+                    getattr(self, name).fill_(_inv_softplus(value))
+
+    def _hc_stretch(self, dtype: torch.dtype) -> tuple:
+        """Per-simplex (beta, gamma, zeta) rows [S] from the per-rank raw
+        parameters: softplus-constrained (beta > 0, gamma < 0, zeta > 1),
+        cast to ``dtype``, repeated by rank size."""
+        reps = torch.as_tensor(self.sizes, device=self.hc_beta_raw.device)
+
+        def expand(v):
+            return torch.repeat_interleave(v.to(dtype), reps, output_size=self.total_simplices)
+
+        return (
+            expand(F.softplus(self.hc_beta_raw)),
+            expand(-F.softplus(self.hc_gamma_raw)),
+            expand(1.0 + F.softplus(self.hc_zeta_raw)),
+        )
 
     def compute_logits(
         self, bands: torch.Tensor, train: bool = False, generator: torch.Generator | None = None
@@ -205,6 +262,41 @@ class AudioEncoder(nn.Module):
             for r in range(4)
         )
 
+    def _relax(self, biased, temperature, train, generator, noise, stretch) -> torch.Tensor:
+        """The stochastic relaxation of every biased logit, in the JAX
+        package's branch order (train: sampled; eval: noiseless).
+        ``stretch``: the learned (beta, gamma, zeta) rows, or None."""
+        fused = self.use_fused_sampler and train
+        if self.sampler == "hard_concrete":
+            if stretch is not None:
+                beta, gamma, zeta = stretch
+                if fused:
+                    return hard_concrete_fused_learned_diff(biased, generator, beta, gamma, zeta, True, noise)
+                return hard_concrete(biased, generator, beta, HardConcreteParams(gamma, zeta), train, noise)
+            if fused:
+                return hard_concrete_fused_diff(biased, generator, temperature, True, noise)
+            return hard_concrete(biased, generator, temperature, training=train, noise=noise)
+        if self.hard:
+            # The reference's hard path relaxes without noise before its
+            # Bernoulli draw.
+            t = torch.as_tensor(temperature, device=biased.device).to(biased.dtype)
+            return torch.sigmoid(biased / t)
+        if fused:
+            return binary_gumbel_fused_diff(biased, generator, temperature, True, noise)
+        return binary_gumbel(biased, generator, temperature, train, noise)
+
+    def _hard_ranks(self, rect: RectifiedProbs, generator, hard_noise) -> tuple:
+        """Per-rank Bernoulli draws of the rectified probabilities: ``u < p``
+        on the uniforms ``hard_noise`` (four tensors) or drawn from
+        ``generator``; with neither, a threshold at 0.5."""
+        if hard_noise is None and generator is None:
+            return tuple((p > 0.5).to(p.dtype) for p in rect.ranks)
+        if hard_noise is None:
+            hard_noise = [torch.rand(p.shape, generator=generator, device=generator.device) for p in rect.ranks]
+        return tuple(
+            (u.to(device=p.device, dtype=p.dtype) < p).to(p.dtype) for u, p in zip(hard_noise, rect.ranks)
+        )
+
     def generate_complex(
         self,
         logits: torch.Tensor,
@@ -212,33 +304,55 @@ class AudioEncoder(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
+        hard_noise=None,
+        hard_generator: torch.Generator | None = None,
     ) -> EncoderOutput:
-        """Sample (train) or threshold (eval), rectify, embed and assemble
-        the operators. In training the relaxation's uniforms come from
-        ``noise`` when given, else from ``generator``."""
+        """Sample (train) or relax without noise (eval), rectify, embed and
+        assemble the operators.
+
+        The relaxation's uniforms come from ``noise`` when given, else from
+        ``generator``. With ``hard``, the Bernoulli draws come from
+        ``hard_noise`` (four uniform tensors, one per rank) when given, else
+        from ``hard_generator`` or ``generator``, in eval as in training;
+        with neither they threshold at 0.5.
+        """
         v = self.sizes[0]
         biased = torch.cat(
             [logits[..., :v] + F.relu(self.vertex_bias), logits[..., v:]], dim=-1
         )
-        if train and self.use_fused_sampler:
-            probs_all = binary_gumbel_fused_diff(biased, generator, temperature, True, noise)
-        else:
-            probs_all = binary_gumbel(biased, generator, temperature, train, noise)
+        stretch = self._hc_stretch(biased.dtype) if self.learned_hc else None
+        probs_all = self._relax(biased, temperature, train, generator, noise, stretch)
         rect = enforce_constraints(*self.tables.split(probs_all), self.tables)
-        masks = tuple((p > 0).to(logits.dtype) for p in rect.ranks)
-        valid = rect.vertices.sum(dim=-1) > 0
-        # Operators from the rectified probs, masks from the output probs
-        # (the same tensors when hard=False).
+        if self.hard:
+            draw = hard_generator if hard_generator is not None else generator
+            hard_ranks = self._hard_ranks(rect, draw, hard_noise)
+            rect2 = enforce_constraints(*hard_ranks, self.tables)
+            out_ranks = RectifiedProbs(*(
+                straight_through(h, l) for h, l in zip(rect2.ranks, self.tables.split(biased))
+            ))
+        else:
+            out_ranks = rect
+        masks = tuple((p > 0).to(logits.dtype) for p in out_ranks.ranks)
+        valid = out_ranks.vertices.sum(dim=-1) > 0
+        # Embeddings and masks from the output probs, operators from the
+        # soft rectified probs (the same tensors when hard=False).
         ops = build_operators(rect, self.tables, masks=masks)
+        if stretch is not None:
+            beta, gamma, zeta = stretch
+            l0 = hard_concrete_l0_penalty(biased, beta, HardConcreteParams(gamma, zeta)).mean(dim=-1)
+        elif self.sampler == "hard_concrete":
+            l0 = hard_concrete_l0_penalty(biased, temperature).mean(dim=-1)
+        else:
+            l0 = torch.zeros(logits.shape[:-1], dtype=logits.dtype, device=logits.device)
         return EncoderOutput(
             logits=logits,
-            embeddings=self.embed(rect),
+            embeddings=self.embed(out_ranks),
             ops=ops,
-            probs=rect,
+            probs=out_ranks,
             rectified=rect,
             masks=masks,
             valid=valid,
-            l0=torch.zeros(logits.shape[:-1], dtype=logits.dtype, device=logits.device),
+            l0=l0,
         )
 
     def forward(
@@ -248,9 +362,10 @@ class AudioEncoder(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
+        hard_noise=None,
     ) -> EncoderOutput:
         logits = self.compute_logits(bands, train, generator)
-        return self.generate_complex(logits, temperature, train, generator, noise)
+        return self.generate_complex(logits, temperature, train, generator, noise, hard_noise)
 
 
 def info_nce_loss(logits: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:

@@ -89,26 +89,46 @@ def _kernels():
     return philox, noise
 
 
-def _launch_cuda(logits, temperature, seed, offset, noise, u_out):
-    if logits.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 logits, not {logits.dtype}")
-    if not logits.is_contiguous():
-        raise ValueError("the CUDA kernel takes contiguous logits")
-    out = torch.empty_like(logits)
-    philox, from_noise = _kernels()
-    code = _DTYPE_CODES[logits.dtype]
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        if noise is not None:
-            err = from_noise(logits.data_ptr(), noise.data_ptr(), out.data_ptr(),
-                             logits.numel(), float(temperature), code, stream)
-        else:
-            err = philox(logits.data_ptr(), out.data_ptr(),
-                         0 if u_out is None else u_out.data_ptr(), logits.numel(),
-                         seed, offset, float(temperature), code, stream)
+def _check_inputs(x: torch.Tensor, seed: int, offset: int, noise: torch.Tensor | None, what: str):
+    """Validates a sampler's input ``x`` for its device and the draw's
+    (seed, offset) or uniforms; returns the uniforms, if given, as fp32 on
+    ``x``'s device."""
+    if not 0 <= seed < 2**64 or not 0 <= offset < 2**64:
+        raise ValueError("seed and offset are unsigned 64-bit integers")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
+    if x.device.type == "cuda":
+        if x.dtype not in _DTYPE_CODES:
+            raise TypeError(f"the {what} kernel takes float32 or bfloat16 input, not {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"the {what} kernel takes a contiguous input")
+    if noise is not None:
+        if noise.shape != x.shape:
+            raise ValueError(f"noise {tuple(noise.shape)} must match the input {tuple(x.shape)}")
+        noise = noise.to(device=x.device, dtype=torch.float32).contiguous()
+    return noise
+
+
+def _run(x, seed, offset, noise, return_noise, plain, launch, what):
+    """One sampler pass over ``x``: ``plain(u)`` for a CPU tensor, on the
+    uniforms ``noise`` or the Philox stream of (seed, offset); for a CUDA
+    tensor the kernel, through ``launch(out, noise, u_out, stream) -> CUDA
+    error code`` (``u_out``, when not None, receives the kernel's
+    uniforms). Returns the output, and the uniforms with ``return_noise``."""
+    if x.device.type == "cpu":
+        u = noise if noise is not None else philox_uniform(x.numel(), seed, offset, x.device).reshape(x.shape)
+        out = plain(u)
+        return (out, u) if return_noise else out
+    u_out = None
+    if return_noise and noise is None:
+        u_out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = launch(out, noise, u_out, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"binary_gumbel launch failed: CUDA error {err}")
-    binary_gumbel_sample.launches += 1
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    if return_noise:
+        return out, (noise if noise is not None else u_out)
     return out
 
 
@@ -127,29 +147,26 @@ def binary_gumbel_sample(
     the uniforms used are returned too: ``(s, u)``. CPU tensors take the
     plain version; CUDA tensors launch the kernel; any other device raises.
     """
-    if not float(temperature) > 0.0:
+    temperature = float(temperature)
+    if not temperature > 0.0:
         raise ValueError(f"temperature must be positive, not {temperature}")
-    if not 0 <= seed < 2**64 or not 0 <= offset < 2**64:
-        raise ValueError("seed and offset are unsigned 64-bit integers")
-    device = logits.device
-    if noise is not None:
-        if noise.shape != logits.shape:
-            raise ValueError(f"noise {tuple(noise.shape)} must match logits {tuple(logits.shape)}")
-        noise = noise.to(device=device, dtype=torch.float32).contiguous()
-    if device.type == "cpu":
-        u = noise if noise is not None else philox_uniform(
-            logits.numel(), seed, offset, device).reshape(logits.shape)
-        s = binary_gumbel_plain(logits, u, temperature)
-        return (s, u) if return_noise else s
-    if device.type != "cuda":
-        raise ValueError(f"binary_gumbel_sample runs on cpu or cuda tensors, not {device}")
-    u_out = None
-    if return_noise and noise is None:
-        u_out = torch.empty(logits.shape, dtype=torch.float32, device=device)
-    s = _launch_cuda(logits, temperature, seed, offset, noise, u_out)
-    if return_noise:
-        return s, (noise if noise is not None else u_out)
-    return s
+    noise = _check_inputs(logits, seed, offset, noise, "binary_gumbel_sample")
+
+    def launch(out, noise, u_out, stream):
+        philox, from_noise = _kernels()
+        code = _DTYPE_CODES[logits.dtype]
+        if noise is not None:
+            err = from_noise(logits.data_ptr(), noise.data_ptr(), out.data_ptr(),
+                             logits.numel(), temperature, code, stream)
+        else:
+            err = philox(logits.data_ptr(), out.data_ptr(), 0 if u_out is None else u_out.data_ptr(),
+                         logits.numel(), seed, offset, temperature, code, stream)
+        if err == 0:
+            binary_gumbel_sample.launches += 1
+        return err
+
+    return _run(logits, seed, offset, noise, return_noise,
+                lambda u: binary_gumbel_plain(logits, u, temperature), launch, "binary_gumbel")
 
 
 binary_gumbel_sample.launches = 0
@@ -168,7 +185,7 @@ def _seed(generator: torch.Generator | None, noise: torch.Tensor | None) -> int:
     if noise is not None:
         return 0
     if generator is None:
-        raise ValueError("the train-mode binary Gumbel sample needs a generator or noise")
+        raise ValueError("a train-mode fused sample needs a generator or noise")
     return seed_from(generator)
 
 

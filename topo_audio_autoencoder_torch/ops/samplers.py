@@ -1,13 +1,16 @@
-"""Stochastic binarization: the binary Gumbel relaxation, its temperature
-schedule and the straight-through estimator.
+"""Stochastic binarization: the binary Gumbel relaxation, the Hard
+Concrete gate, the temperature schedule and the straight-through
+estimator.
 
-Port of the binary-Gumbel part of ``topo_audio_autoencoder_tpu.ops.samplers``
-(Hard Concrete comes with a later slice). These are the plain samplers,
-drawing their noise with ``torch.rand`` from an explicit generator; the
-encoder's default path is the fused kernel in ``ops.fused_samplers``.
+Port of ``topo_audio_autoencoder_tpu.ops.samplers``. These are the plain
+samplers, drawing their noise with ``torch.rand`` from an explicit
+generator or taking it as a tensor; the encoder's default train path is the
+fused kernels in ``ops.fused_samplers``.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -67,3 +70,68 @@ def binary_gumbel(
     n = logistic_noise(noise.to(logits.dtype))
     t = torch.as_tensor(temperature, device=logits.device).to(logits.dtype)
     return torch.sigmoid((2.0 * logits - 1.0 + n) / t)
+
+
+@dataclass(frozen=True)
+class HardConcreteParams:
+    """Stretch of the Hard Concrete gate (Louizos et al. 2018, section 4).
+
+    ``gamma``/``zeta`` may also be tensors broadcastable against log-alpha:
+    the encoder's learned per-rank stretch passes per-simplex [S] rows.
+    """
+
+    gamma: float | torch.Tensor = -0.1
+    zeta: float | torch.Tensor = 1.1
+
+
+def hard_concrete(
+    log_alpha: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature,
+    params: HardConcreteParams = HardConcreteParams(),
+    training: bool = True,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Hard Concrete relaxation of a Bernoulli gate.
+
+    train: ``s = sigmoid((logistic(u) + log_alpha) / T)``, ``u`` drawn from
+    ``generator`` or given as ``noise``; eval: ``s = sigmoid(log_alpha)``;
+    both ``z = clip(s (zeta - gamma) + gamma, 0, 1)``. Exactly 0 or 1 with
+    positive probability. Computes in log-alpha's dtype (the temperature,
+    a scalar or a per-simplex row, is cast to it).
+    """
+    g, z_ = params.gamma, params.zeta
+    if training:
+        if noise is None:
+            if generator is None:
+                raise ValueError("hard_concrete(training=True) needs a generator or noise")
+            noise = uniform_noise(log_alpha.shape, generator, log_alpha.device)
+        n = logistic_noise(noise.to(log_alpha.dtype))
+        t = torch.as_tensor(temperature, device=log_alpha.device).to(log_alpha.dtype)
+        s = torch.sigmoid((n + log_alpha) / t)
+    else:
+        s = torch.sigmoid(log_alpha)
+    return torch.clamp(s * (z_ - g) + g, 0.0, 1.0)
+
+
+def hard_concrete_l0_penalty(
+    log_alpha: torch.Tensor, temperature, params: HardConcreteParams = HardConcreteParams()
+) -> torch.Tensor:
+    """Expected L0: the probability that each gate is nonzero,
+    ``sigmoid(log_alpha - T log(-gamma / zeta))``."""
+    g, z_ = params.gamma, params.zeta
+    ratio = -g / z_
+    if not isinstance(ratio, torch.Tensor):
+        ratio = torch.tensor(ratio, dtype=torch.float32)
+    t = torch.as_tensor(temperature, device=log_alpha.device)
+    return torch.sigmoid(log_alpha - t * torch.log(ratio.to(log_alpha.device)))
+
+
+def bernoulli_ste(
+    probs: torch.Tensor, logits: torch.Tensor, u: torch.Tensor
+) -> torch.Tensor:
+    """Bernoulli sample of ``probs`` (``u < probs`` for uniforms ``u`` on
+    [0, 1), as ``jax.random.bernoulli`` draws) with the gradient routed to
+    ``logits``."""
+    hard = (u.to(probs.dtype) < probs).to(probs.dtype)
+    return straight_through(hard, logits)

@@ -18,7 +18,9 @@ the scanned and corpus-indexed variants come with a later slice):
   ``torch.func.functional_call``, so the gradients reach the masters
   through the cast. The rectifier and the STFT keep their fp32 islands.
 - The step's randomness derives from (run seed, step counter) alone, as
-  ``jax.random.fold_in(rng, step)`` does in the JAX package.
+  ``jax.random.fold_in(rng, step)`` does in the JAX package. Tests inject
+  the sampler's uniforms (``noise``) and, for a ``hard`` model, the four
+  per-rank Bernoulli uniforms (``hard_noise``).
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters and the optimizer state in place and returns the same state.
@@ -150,7 +152,8 @@ def create_train_state(model: AudioAutoencoder, optimizer: Optimizer) -> TrainSt
 def step_generators(seed: int, step: int, device) -> tuple:
     """The step's two generators, a function of (seed, step) alone: a CPU
     generator for the sampler's seed (drawing it costs the card no
-    synchronisation) and one on ``device`` for the dropout masks."""
+    synchronisation) and one on ``device`` for the dropout masks and the
+    hard path's Bernoulli draws."""
     sample_seed, dropout_seed = np.random.SeedSequence([seed, step]).generate_state(2, np.uint64)
     sample = torch.Generator(device="cpu").manual_seed(int(sample_seed))
     dropout = torch.Generator(device=device).manual_seed(int(dropout_seed))
@@ -177,7 +180,7 @@ class _Objective(nn.Module):
         self.model = model
         self.weights = weights
 
-    def forward(self, batch, temperature, compute_dtype, sample_gen, dropout_gen, noise):
+    def forward(self, batch, temperature, compute_dtype, sample_gen, dropout_gen, noise, hard_noise):
         model = self.model
         b, g, _, t = batch.shape
         flat = batch.reshape(b * g, 1, t).to(compute_dtype)
@@ -189,7 +192,9 @@ class _Objective(nn.Module):
             contrastive = info_nce_loss(logits.reshape(b, g, -1).to(torch.float32))
         # ...then complex and decode for the anchors only.
         anchor_logits = logits.reshape(b, g, -1)[:, 0]
-        enc = model.encoder.generate_complex(anchor_logits, temperature, True, sample_gen, noise)
+        enc = model.encoder.generate_complex(
+            anchor_logits, temperature, True, sample_gen, noise, hard_noise, hard_generator=dropout_gen
+        )
         anchors = flat.reshape(b, g, 1, t)[:, 0]
         recon = model.decode(enc, t // model.num_bands, True)
         aux = {
@@ -214,22 +219,25 @@ def make_loss_and_grads(
     weights: LossWeights = LossWeights(),
     compute_dtype: torch.dtype = torch.float32,
 ):
-    """``loss_and_grads(batch, temperature, seed, step, noise=None) ->
-    (total, components, grads)``: the step's forward and backward without
-    the update. ``grads`` maps every parameter name to its fp32 gradient."""
+    """``loss_and_grads(batch, temperature, seed, step, noise=None,
+    hard_noise=None) -> (total, components, grads)``: the step's forward and
+    backward without the update. ``grads`` maps every parameter name to its
+    fp32 gradient."""
     objective = _Objective(model, weights)
 
-    def loss_and_grads(batch, temperature, seed: int, step: int, noise=None):
+    def loss_and_grads(batch, temperature, seed: int, step: int, noise=None, hard_noise=None):
         params = dict(model.named_parameters())
         device = next(iter(params.values())).device
         batch = torch.as_tensor(batch, device=device)
         if noise is not None:
             noise = torch.as_tensor(noise, device=device)
+        if hard_noise is not None:
+            hard_noise = [torch.as_tensor(u, device=device) for u in hard_noise]
         sample_gen, dropout_gen = step_generators(seed, step, device)
         cast = {f"model.{n}": p.to(compute_dtype) for n, p in params.items()}
         total, components = torch.func.functional_call(
             objective, cast,
-            (batch, float(temperature), compute_dtype, sample_gen, dropout_gen, noise),
+            (batch, float(temperature), compute_dtype, sample_gen, dropout_gen, noise, hard_noise),
         )
         grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
         grads = {
@@ -248,20 +256,22 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.float32,
     with_grad_norms: bool = False,
 ):
-    """``train_step(state, batch, temperature, seed, noise=None) -> (state,
-    metrics)``. Batch: [B, G, 1, T] (G = 1 disables the contrastive term;
-    G >= 3 for InfoNCE). ``seed`` is the run's seed: the step draws from
-    (seed, state.step). ``noise`` (uniforms [B, S_total]) replaces the
-    sampler's draw. Metrics are 0-d tensors on the model's device (no
-    synchronisation), with ``grad_norms`` when asked."""
+    """``train_step(state, batch, temperature, seed, noise=None,
+    hard_noise=None) -> (state, metrics)``. Batch: [B, G, 1, T] (G = 1
+    disables the contrastive term; G >= 3 for InfoNCE). ``seed`` is the
+    run's seed: the step draws from (seed, state.step). ``noise`` (uniforms
+    [B, S_total]) replaces the sampler's draw and ``hard_noise`` (four
+    per-rank uniform tensors [B, S_r]) a hard model's Bernoulli draws.
+    Metrics are 0-d tensors on the model's device (no synchronisation),
+    with ``grad_norms`` when asked."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
     loss_and_grads = make_loss_and_grads(model, weights, compute_dtype)
 
-    def train_step(state: TrainState, batch, temperature, seed: int, noise=None):
+    def train_step(state: TrainState, batch, temperature, seed: int, noise=None, hard_noise=None):
         if state.model is not model:
             raise ValueError("the state's model is not the one this step was made for")
-        _, components, grads = loss_and_grads(batch, temperature, seed, state.step, noise)
+        _, components, grads = loss_and_grads(batch, temperature, seed, state.step, noise, hard_noise)
         optimizer.update(grads, state.opt_state, model)
         metrics = dict(components)
         if with_grad_norms:
@@ -289,5 +299,5 @@ def make_eval_step(model: AudioAutoencoder, weights: LossWeights = LossWeights()
 
 
 def anneal_temperature(epoch, initial_temp: float = 5.0, min_temp: float = 0.1, decay: float = 0.95):
-    """Per-epoch Gumbel temperature, max(min_temp, T0 * decay^epoch)."""
+    """Per-epoch sampler temperature, max(min_temp, T0 * decay^epoch)."""
     return temperature_schedule(epoch, initial_temp, min_temp, decay)
