@@ -19,6 +19,16 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             logits (and its generator's statistics over 4M draws), the
             fixed- and learned-stretch Hard Concrete samplers at their
             train steps' log-alpha (and the gates' clip statistics).
+   kernel_combine  the fused SCCN combine's forward and backward kernels
+            against the plain version and its autograd at the train step's
+            two fused ranks (rank 3: M=2, 77,520 rows; rank 2: M=3, 18,240
+            rows) and a ragged M=1 case, fp32 and bf16, with times and bounds.
+   combine_diag  benchmarks/kernel_diag.py's ladder on the card: the packed
+            kernels' parity (512 rows, fp32, forward and six cotangents), then
+            at its default shape (bf16, M=2, 1,860,480 rows) every variant's
+            kernel against its plain version and the times of the forward
+            rungs (copy, matmul, nogelu, full, packed, plain) and the
+            gradient rungs (packed, full, plain autograd).
 3. serve    the flagship-width codec (n=20, 16 bands, C=64, 6 SCCN
             layers, seeded random weights): a warm-up request and three
             timed ones of 8 clips x 64,000 samples, each encode -> pack ->
@@ -49,8 +59,16 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             Hard Concrete models (B=2; G=1 and G=3), with injected
             relaxation and Bernoulli uniforms whose every gate and draw
             clears a stated margin; the encoder masks equal bit for bit.
-12. kernels  one line per kernel: route, source, launches (its train
-            step), error, times (at its train step's shape).
+12. train_fused  the flagship Gumbel step with every SCCN layer switched to
+            fused_combine: a warm-up and 5 timed steps (row 6 and row 7 each
+            launched exactly 12 times a step), one profiled step, one step
+            fused against unfused on the same weights, batch and uniforms
+            (train_parity's bounds), and one 8-clip decode's waveform fused
+            against unfused on one shared latent. Every earlier phase
+            launches the combine kernels (rows 6-10) zero times.
+13. kernels  one line per kernel: route, source, launches (its train
+            step; combine_diag's ladder for rows 8-10), error, times (at its
+            train step's shape; the ladder's for rows 8-10).
 
 Then the nvidia-smi line and, last, {"ok": true, "device": ...}. Any failed
 check exits non-zero before the last line. Without a card it exits 2.
@@ -168,6 +186,43 @@ ENCODE_CALLS = 20
 # the next seed is tried, up to HC_SEED_TRIES.
 HC_MARGIN = 1e-5
 HC_SEED_TRIES = 20
+
+# The fused SCCN combine (rows 6-10). The train step decodes B=16 anchors:
+# rank 3 has 16 x 4,845 = 77,520 rows and M=2 messages, rank 2 16 x 1,140 =
+# 18,240 rows and M=3; ranks 0 and 1 stay below MIN_FUSED_ROWS. A ragged
+# M=1 case (4,097 rows: one row past 64 full tiles) covers the rest.
+COMBINE_SHAPES = ((2, TRAIN_B * 4845), (3, TRAIN_B * 1140), (1, 4097))
+COMBINE_C = 64
+# Kernel vs plain, relative to each output's largest element. fp32: the same
+# operations in other summation orders (y 1e-5; every gradient, a sum over up
+# to 77,520 rows for the weights, 1e-4). bf16: the plain version rounds each
+# of its ops to bf16 (about six roundings of 2^-9 between a carrier and y,
+# about ten on the way to a gradient), the kernel only its outputs and the
+# three product operands of the TPU kernel's cast points: 2^-5 bounds both.
+TOL_COMBINE = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -5, 2.0 ** -5)}
+# About 4C^2 + 16C operations per row and message (two [C, C] products, the
+# gelu, the score, the softmax and the weighted sum); the backward three
+# times as many; the no-gelu ablation 4C^2 + 6C, the matmul one 2C^2 + 2C,
+# the copy one C.
+COMBINE_OPS = {"full": 4 * 64 * 64 + 16 * 64, "nogelu": 4 * 64 * 64 + 6 * 64,
+               "matmul": 2 * 64 * 64 + 2 * 64, "copy": 64}
+# benchmarks/kernel_diag.py's ladder at its default shape (:477-486): bf16,
+# M=2, C=64, 384 x 4,845 rows; its parity (:427-465) at 512 rows in fp32,
+# forward within 1e-5 and the six cotangents within 1e-4 of their largest
+# elements.
+DIAG_ROWS = 384 * 4845
+DIAG_PARITY_ROWS = 512
+TOL_DIAG_PARITY = (1e-5, 1e-4)
+# train_fused: the flagship Gumbel step with every layer fused. Ranks 2 and
+# 3 of each of the 6 layers clear MIN_FUSED_ROWS: 12 launches each of row 6
+# and row 7 per step. The decode check: one 8-clip decode, fused against
+# unfused on one latent, within DECODE_FUSED_TOL.
+TRAIN_FUSED_STEPS = 5
+FUSED_RANK_LAYERS = 12
+DECODE_FUSED_TOL = 1e-4
+COMBINE_KERNELS = ("sccn_combine_fwd", "sccn_combine_bwd", "sccn_combine_packed_fwd",
+                   "sccn_combine_packed_bwd", "sccn_combine_copy", "sccn_combine_matmul",
+                   "sccn_combine_nogelu")
 
 
 class CheckFailed(Exception):
@@ -674,6 +729,7 @@ def phase_train(torch, port, counters) -> tuple:
     check(launches["masked_attention_bwd"] >= steps, f"attention bwd launches {launches} for {steps} steps")
     check(launches["hard_concrete"] == 0 and launches["hard_concrete_learned"] == 0,
           f"the Gumbel step launched a Hard Concrete kernel: {launches}")
+    check(all(launches[k] == 0 for k in COMBINE_KERNELS), f"the unfused step launched a combine kernel: {launches}")
     step_ms = statistics.median(times[1:])
 
     bf16_opt = port.make_optimizer(accumulate_grad_batches=1)
@@ -895,7 +951,7 @@ def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, 
     n = len(batches)
     for name in ("masked_attention_fwd", "masked_attention_bwd", *expect):
         check(launches[name] == n, f"{phase}: {name} launched {launches[name]} times in {n} steps")
-    for name in ("binary_gumbel", "hard_concrete", "hard_concrete_learned"):
+    for name in ("binary_gumbel", "hard_concrete", "hard_concrete_learned", *COMBINE_KERNELS):
         if name not in expect:
             check(launches[name] == 0, f"{phase}: {name} launched {launches[name]} times")
     params = dict(model.named_parameters())
@@ -1093,6 +1149,315 @@ def phase_train_parity(torch, port, training, phase="train_parity", options=None
     check(leaf_err[worst] <= SURROGATE_TOL, f"{phase}: surrogate gradient leaf {worst}: {leaf_err[worst]}")
 
 
+def roofline(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    """The larger of the bytes over HBM_BPS and the operations over the
+    dtype's peak, in ms, and which one it is."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def combine_bound(variant: str, m: int, rows: int, elt: int, dtype_name: str,
+                  backward: bool = False) -> tuple[float, str]:
+    """Least time for one combine variant: the carriers, x (and dy) read
+    once, y (or dcar and dx) written once, the weights (and their
+    gradients) once; COMBINE_OPS operations per row and message, three
+    times as many backward."""
+    c = COMBINE_C
+    weights = {"copy": 0, "matmul": m * c * c}.get(variant, m * c * c + c * c + 2 * c)
+    if backward:
+        nbytes = ((2 * m + 3) * rows * c + 2 * weights) * elt
+        flops = 3.0 * rows * m * COMBINE_OPS[variant]
+    else:
+        nbytes = ((m + 2) * rows * c + weights) * elt
+        flops = float(rows) * m * COMBINE_OPS[variant]
+    return roofline(nbytes, flops, dtype_name)
+
+
+def combine_inputs(torch, m: int, rows: int, dtype, seed: int):
+    """kernel_diag.make_inputs' scales, made on the card from a seed: M
+    carriers, x and dy ~ N(0, 1) of [rows, C]; v, w1, b1, w2 ~ 0.1 N(0, 1)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def t(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * scale).to(dtype)
+
+    c = COMBINE_C
+    car = tuple(t((rows, c)) for _ in range(m))
+    return car, t((rows, c)), t((m, c, c), 0.1), t((c, c), 0.1), t((c,), 0.1), t((c, 1), 0.1), t((rows, c))
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error over the largest |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_kernel_combine(torch, sc) -> dict:
+    """Rows 6 and 7 against message_combine_reference and autograd through
+    it, on the same inputs, at COMBINE_SHAPES in fp32 and bf16. bf16 also
+    reports both sides' error against the plain version in fp32 on the
+    same bf16 inputs. No single PyTorch call computes this function: no
+    library time. Returns the rank-3 fp32 results."""
+    results = []
+    for m, rows in COMBINE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            car, x, v, w1, b1, w2, dy = combine_inputs(torch, m, rows, dtype, SEED + 7 + m)
+            args = (car, x, v, w1, b1, w2)
+            y = sc.combine_fwd(*args)
+            dcar, *grads = sc.combine_bwd(*args, dy)
+            torch.cuda.synchronize()
+            want_y = sc.message_combine_reference(*args)
+            want_dcar, *want_grads = sc.combine_bwd_plain(*args, dy)
+            fwd_tol, bwd_tol = TOL_COMBINE[name]
+            check(y.dtype == dtype and y.shape == x.shape, f"combine fwd {name}: shape/dtype")
+            y_err, y_rel = rel_err(y, want_y)
+            check(y_rel <= fwd_tol, f"combine fwd M={m} {name}: rel err {y_rel} > {fwd_tol}")
+            names = [f"dcar{i}" for i in range(m)] + ["dx", "dv", "dw1", "db1", "dw2"]
+            bwd = {}
+            for key, g, w in zip(names, (*dcar, *grads), (*want_dcar, *want_grads)):
+                check(g.dtype == w.dtype and g.shape == w.shape, f"combine bwd {name}: {key} shape/dtype")
+                bwd[key] = rel_err(g, w)
+                check(bwd[key][1] <= bwd_tol, f"combine bwd M={m} {name}: {key} rel err {bwd[key][1]} > {bwd_tol}")
+            extra = {}
+            if dtype == torch.bfloat16:  # which side is nearer the fp32 function of the same inputs
+                exact = sc.message_combine_reference(*(t.float() if torch.is_tensor(t) else tuple(c.float() for c in t)
+                                                       for t in args))
+                extra = dict(kernel_rel_err_vs_fp32_plain=rel_err(y, exact)[1],
+                             plain_rel_err_vs_fp32_plain=rel_err(want_y, exact)[1])
+            elt = x.element_size()
+            f_bound, f_by = combine_bound("full", m, rows, elt, name)
+            b_bound, b_by = combine_bound("full", m, rows, elt, name, backward=True)
+            results.append(dict(
+                m=m, rows=rows, dtype=name,
+                fwd=dict(max_abs_err=y_err, rel_err=y_rel, tol_rel=fwd_tol,
+                         ms=time_ms(lambda: sc.combine_fwd(*args)),
+                         plain_ms=time_ms(lambda: sc.message_combine_reference(*args)),
+                         library_ms=None, bound_ms=f_bound, bound_by=f_by, **extra),
+                bwd=dict(max_abs_err=max(e for e, _ in bwd.values()), rel_err={k: r for k, (_, r) in bwd.items()},
+                         tol_rel=bwd_tol, ms=time_ms(lambda: sc.combine_bwd(*args, dy)),
+                         plain_ms=time_ms(lambda: sc.combine_bwd_plain(*args, dy)),
+                         library_ms=None, bound_ms=b_bound, bound_by=b_by),
+            ))
+            del car, x, v, w1, b1, w2, dy, args, y, dcar, grads, want_y, want_dcar, want_grads
+    emit("kernel_combine", kernel="sccn_combine_fwd/bwd", inputs="synthetic", c=COMBINE_C, results=results)
+    return results[0]
+
+
+def phase_combine_diag(torch, sc, cd, counters) -> tuple:
+    """kernel_diag on the card. Parity first (its parity(): the packed
+    forward against message_combine_reference at 512 rows in fp32, and
+    all six cotangents of sum(y^2) through packed_combine against autograd
+    through the reference; each ablation against its plain version). Then,
+    at the ladder's shape, every variant's kernel against its plain version;
+    then, the counters zeroed just before, the timed rungs. Returns the
+    per-kernel results and the ladder's launches."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    car, x, v, w1, b1, w2, _ = combine_inputs(torch, 2, DIAG_PARITY_ROWS, f32, SEED + 20)
+    car = torch.stack(car)
+    parity = {"fwd": rel_err(cd.packed_combine_fwd(car, x, v, w1, b1, w2),
+                             sc.message_combine_reference(tuple(car), x, v, w1, b1, w2))[1]}
+    check(parity["fwd"] <= TOL_DIAG_PARITY[0], f"packed fwd parity {parity['fwd']}")
+    leaves = [t.clone().requires_grad_(True) for t in (car, x, v, w1, b1, w2)]
+    got = torch.autograd.grad((cd.packed_combine(*leaves) ** 2).sum(), leaves)
+    ref = [t.clone().requires_grad_(True) for t in (car, x, v, w1, b1, w2)]
+    want = torch.autograd.grad((sc.message_combine_reference(tuple(ref[0]), *ref[1:]) ** 2).sum(), ref)
+    for key, g, w in zip(("dcar", "dx", "dv", "dw1", "db1", "dw2"), got, want):
+        parity[key] = rel_err(g, w)[1]
+        check(parity[key] <= TOL_DIAG_PARITY[1], f"packed grad parity {key}: {parity[key]}")
+    ablations = {
+        "copy": (cd.combine_copy, cd.combine_copy_plain, (car, x)),
+        "matmul": (cd.combine_matmul, cd.combine_matmul_plain, (car, x, v)),
+        "nogelu": (cd.combine_nogelu, cd.combine_nogelu_plain, (car, x, v, w1, b1, w2)),
+    }
+    for key, (kernel, plain, args) in ablations.items():
+        parity[key] = rel_err(kernel(*args), plain(*args))[1]
+        check(parity[key] <= TOL_COMBINE["float32"][0], f"{key} fp32 parity {parity[key]}")
+
+    rows = DIAG_ROWS
+    car, x, v, w1, b1, w2, dy = combine_inputs(torch, 2, rows, bf16, SEED + 21)
+    car = torch.stack(car)
+    full = (car, x, v, w1, b1, w2)
+    variants = {  # name: (kernel, plain, args, kernel counter, bound variant, backward)
+        "copy": (cd.combine_copy, cd.combine_copy_plain, (car, x), "sccn_combine_copy", "copy", False),
+        "matmul": (cd.combine_matmul, cd.combine_matmul_plain, (car, x, v), "sccn_combine_matmul", "matmul", False),
+        "nogelu": (cd.combine_nogelu, cd.combine_nogelu_plain, full, "sccn_combine_nogelu", "nogelu", False),
+        "packed": (cd.packed_combine_fwd, cd.packed_combine_plain, full, "sccn_combine_packed_fwd", "full", False),
+        "packed_bwd": (cd.packed_combine_bwd, cd.packed_combine_bwd_plain, (*full, dy), "sccn_combine_packed_bwd",
+                       "full", True),
+    }
+    errs = {}
+    for key, (kernel, plain, args, _, _, backward) in variants.items():
+        got, want = kernel(*args), plain(*args)
+        pairs = zip(got, want) if backward else [(got, want)]
+        errs[key] = max((rel_err(g, w) for g, w in pairs), key=lambda e: e[1])
+        tol = TOL_COMBINE["bfloat16"][1 if backward else 0]
+        check(errs[key][1] <= tol, f"{key} bf16 at the ladder's shape: rel err {errs[key][1]} > {tol}")
+        del got, want
+    torch.cuda.synchronize()
+
+    def grad_of(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in full]
+
+        def run():
+            return torch.autograd.grad(fn(*leaves).float().sum(), leaves)
+        return run
+
+    for c in counters.values():
+        c.launches = 0  # just before the ladder
+    forward = {}
+    for key in ("copy", "matmul", "nogelu"):
+        kernel, _, args, _, variant, _ = variants[key]
+        forward[key] = dict(ms=time_ms(lambda: kernel(*args)),
+                            bound_ms=combine_bound(variant, 2, rows, 2, "bfloat16")[0])
+    forward["full"] = dict(ms=time_ms(lambda: sc.combine_fwd(tuple(car), x, v, w1, b1, w2)),
+                           bound_ms=combine_bound("full", 2, rows, 2, "bfloat16")[0])
+    forward["packed"] = dict(ms=time_ms(lambda: cd.packed_combine_fwd(*full)), bound_ms=forward["full"]["bound_ms"])
+    forward["plain"] = dict(ms=time_ms(lambda: sc.message_combine_reference(tuple(car), x, v, w1, b1, w2)))
+    grad = {
+        "packed": dict(ms=time_ms(grad_of(cd.packed_combine), reps=10, warmup=2)),
+        "full": dict(ms=time_ms(grad_of(lambda c, *a: sc.fused_message_combine(tuple(c), *a)), reps=10, warmup=2)),
+        "plain": dict(ms=time_ms(grad_of(lambda c, *a: sc.message_combine_reference(tuple(c), *a)), reps=10,
+                                 warmup=2)),
+    }
+    packed_bwd_ms = time_ms(lambda: cd.packed_combine_bwd(*full, dy), reps=10, warmup=2)
+    launches = {name: counters[name].launches for name in COMBINE_KERNELS}  # just after the ladder
+    check(all(launches[name] > 0 for name in COMBINE_KERNELS[2:]), f"a diagnostic kernel never launched: {launches}")
+
+    per_kernel = {}
+    for key, (_, plain, args, counter, variant, backward) in variants.items():
+        bound_ms, bound_by = combine_bound(variant, 2, rows, 2, "bfloat16", backward)
+        per_kernel[counter] = dict(
+            max_abs_err=errs[key][0], rel_err=errs[key][1],
+            ms=packed_bwd_ms if backward else forward[key]["ms"],
+            plain_ms=time_ms(lambda: plain(*args), reps=10, warmup=2),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        )
+    emit("combine_diag", rows=rows, m=2, c=COMBINE_C, dtype="bfloat16",
+         carrier_bytes=car.numel() * car.element_size(), parity_rows=DIAG_PARITY_ROWS,
+         parity_rel_err=parity, parity_tol=TOL_DIAG_PARITY, forward=forward, grad=grad,
+         kernels=per_kernel, launches=launches)
+    return per_kernel, launches
+
+
+def set_fused_combine(model, on: bool) -> None:
+    """Switch every SCCN layer of a built model: the counterpart of
+    constructing GradientSCCNLayer(fused_combine=True)."""
+    from topo_audio_autoencoder_torch.models.sccn import GradientSCCNLayer
+
+    layers = [m for m in model.modules() if isinstance(m, GradientSCCNLayer)]
+    check(len(layers) == FLAGSHIP["n_sccn_layers"], f"found {len(layers)} SCCN layers")
+    for layer in layers:
+        layer.fused_combine = on
+
+
+def phase_train_fused(torch, port, training, counters) -> dict:
+    """The flagship Gumbel step with fused_combine on every layer: a warm-up
+    and TRAIN_FUSED_STEPS timed steps on the train phase's batches, one
+    profiled step; one step fused against unfused on the same card,
+    weights, batch and injected uniforms (loss, gradient, surrogate
+    leaves, train_parity's bounds); one 8-clip decode fused against
+    unfused on one latent. Returns the timed steps' launches."""
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED, device=DEVICE)
+    set_fused_combine(model, True)
+    opt = port.make_optimizer(accumulate_grad_batches=1)
+    state = port.create_train_state(model, opt)
+    step = port.make_train_step(model, opt)
+    batches = [torch.from_numpy(train_batch(SEED + 300 + i, TRAIN_B)).to(DEVICE)
+               for i in range(TRAIN_FUSED_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, components, launches = timed_steps(torch, step, state, batches, counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = len(batches)
+    for name in ("sccn_combine_fwd", "sccn_combine_bwd"):
+        check(launches[name] == FUSED_RANK_LAYERS * n, f"train_fused: {name} launched {launches[name]} in {n} steps")
+    for name in ("binary_gumbel", "masked_attention_fwd", "masked_attention_bwd"):
+        check(launches[name] == n, f"train_fused: {name} launched {launches[name]} in {n} steps")
+    for name in ("hard_concrete", "hard_concrete_learned", *COMBINE_KERNELS[2:]):
+        check(launches[name] == 0, f"train_fused: {name} launched {launches[name]} times")
+    step_ms = statistics.median(times[1:])
+    emit(
+        "train_fused", config=FLAGSHIP, fused_combine=True, anchors=TRAIN_B, group=TRAIN_G, samples=NUM_SAMPLES,
+        dtype="float32", steps_timed=TRAIN_FUSED_STEPS, step_ms=times, step_ms_median=step_ms,
+        anchors_per_s=TRAIN_B / (step_ms / 1e3), components=components, launches=launches,
+        launches_per_step={k: v / n for k, v in launches.items()}, peak_mem_gib=peak_gib,
+    )
+    phase_train_trace(torch, state, step, batches[0],
+                      what="one flagship train step with fused_combine (fp32, B=16, G=3)")
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+
+    # Fused against unfused: one model (dropout off), the same batch and uniforms.
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 2, device=DEVICE,
+                                         dropout=0.0)
+    rng = np.random.default_rng(SEED + 8)
+    noise = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (TRAIN_B, model.tables.total_simplices))
+                             .astype(np.float32)).to(DEVICE)
+    w = torch.from_numpy(rng.standard_normal((TRAIN_B, 1, NUM_SAMPLES)).astype(np.float32)).to(DEVICE)
+    batch = batches[0]
+    names, params = zip(*model.named_parameters())
+    runs = {}
+    for fused in (True, False):
+        set_fused_combine(model, fused)
+        for c in counters.values():
+            c.launches = 0
+        total, comps, grads = training.make_loss_and_grads(model)(batch, TEMPERATURE, SEED, 0, noise)
+        val, _ = surrogate(torch, model, batch, noise, w)
+        sgrads = torch.autograd.grad(val, params)
+        torch.cuda.synchronize()
+        runs[fused] = dict(total=float(total), comps={k: float(v) for k, v in comps.items()},
+                           grads={k: g.double() for k, g in grads.items()}, val=val.item(),
+                           sgrads=dict(zip(names, (g.double() for g in sgrads))),
+                           launches=counters["sccn_combine_fwd"].launches + counters["sccn_combine_bwd"].launches)
+    f, u = runs[True], runs[False]
+    check(f["launches"] == 4 * FUSED_RANK_LAYERS and u["launches"] == 0,
+          f"fused/unfused parity launches {f['launches']}, {u['launches']}")
+
+    def l2(ts):
+        return math.sqrt(sum(float((t ** 2).sum()) for t in ts))
+
+    loss_err = abs(f["total"] - u["total"]) / abs(u["total"])
+    comp_err = {k: abs(f["comps"][k] - u["comps"][k]) / max(abs(u["comps"][k]), 1e-6) for k in u["comps"]}
+    grad_err = l2(f["grads"][k] - u["grads"][k] for k in u["grads"]) / l2(u["grads"].values())
+    scale = max(float(g.abs().max()) for g in u["sgrads"].values())
+    leaf_err = {k: float((f["sgrads"][k] - u["sgrads"][k]).abs().max()) / scale for k in u["sgrads"]}
+    worst = max(leaf_err, key=leaf_err.get)
+    check(loss_err <= PARITY_LOSS_RTOL and max(comp_err.values()) <= PARITY_LOSS_RTOL,
+          f"train_fused parity: loss {loss_err}, components {comp_err}")
+    check(grad_err <= PARITY_GRAD_REL_L2, f"train_fused parity: gradient rel L2 {grad_err}")
+    check(leaf_err[worst] <= SURROGATE_TOL, f"train_fused parity: surrogate leaf {worst}: {leaf_err[worst]}")
+
+    # One 8-clip decode, fused against unfused, on one shared latent.
+    codec = port.Codec(model, device=DEVICE)
+    latent = codec.encode(make_clips(CLIPS, SEED + 700))
+    waves = {}
+    decode_launches = {}
+    for fused in (True, False):
+        set_fused_combine(model, fused)
+        for c in counters.values():
+            c.launches = 0
+        waves[fused] = codec.decode(latent, NUM_SAMPLES)
+        torch.cuda.synchronize()
+        decode_launches[fused] = {k: counters[k].launches for k in ("sccn_combine_fwd", "sccn_combine_bwd")}
+    check(decode_launches[True] == {"sccn_combine_fwd": FUSED_RANK_LAYERS, "sccn_combine_bwd": 0}
+          and decode_launches[False] == {"sccn_combine_fwd": 0, "sccn_combine_bwd": 0},
+          f"decode launches {decode_launches}")
+    check(bool(torch.isfinite(waves[True]).all()), "fused decode: non-finite waveform")
+    wave_err = (waves[True] - waves[False]).abs().max().item()
+    check(wave_err <= DECODE_FUSED_TOL, f"fused decode vs unfused: {wave_err} > {DECODE_FUSED_TOL}")
+    emit(
+        "train_fused_parity", anchors=TRAIN_B, group=TRAIN_G, leaves=len(u["grads"]),
+        loss_rel_err=loss_err, component_rel_err=comp_err, loss_rtol=PARITY_LOSS_RTOL,
+        grad_rel_l2=grad_err, grad_rel_l2_tol=PARITY_GRAD_REL_L2, surrogate_leaf_max_err=leaf_err[worst],
+        surrogate_worst_leaf=worst, surrogate_tol=SURROGATE_TOL, parity_launches=f["launches"],
+        decode_clips=CLIPS, decode_max_abs_err=wave_err, decode_tol=DECODE_FUSED_TOL,
+        decode_wave_max_abs=waves[False].abs().max().item(), decode_launches=decode_launches,
+    )
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, result) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1112,8 +1477,10 @@ def main() -> int:
         import topo_audio_autoencoder_torch as port
         from topo_audio_autoencoder_torch import cuda_build, training
         from topo_audio_autoencoder_torch.ops import attention
+        from topo_audio_autoencoder_torch.ops import combine_diag as cd
         from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
         from topo_audio_autoencoder_torch.ops import fused_samplers as fused
+        from topo_audio_autoencoder_torch.ops import sccn_combine as sc
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the repo root", file=sys.stderr)
         return 2
@@ -1137,6 +1504,13 @@ def main() -> int:
         "binary_gumbel": fused.binary_gumbel_sample,
         "hard_concrete": hc.hard_concrete_sample,
         "hard_concrete_learned": hc.hard_concrete_learned_sample,
+        "sccn_combine_fwd": sc.combine_fwd,
+        "sccn_combine_bwd": sc.combine_bwd,
+        "sccn_combine_packed_fwd": cd.packed_combine_fwd,
+        "sccn_combine_packed_bwd": cd.packed_combine_bwd,
+        "sccn_combine_copy": cd.combine_copy,
+        "sccn_combine_matmul": cd.combine_matmul,
+        "sccn_combine_nogelu": cd.combine_nogelu,
     }
     try:
         phase_kernel(torch, attention)
@@ -1145,6 +1519,9 @@ def main() -> int:
         n_simplices = sum(math.comb(n, k) for k in range(1, 5))
         sampler = phase_kernel_sampler(torch, fused, n_simplices)
         hc_kernels = phase_kernel_hc(torch, hc, fused, n_simplices)
+        combine = phase_kernel_combine(torch, sc)
+        diag, diag_launches = phase_combine_diag(torch, sc, cd, counters)
+        torch.cuda.empty_cache()
         model, codec = phase_serve(torch, port, counters)
         phase_main_attention(torch, attention, model, codec)
         phase_trace(torch, codec)
@@ -1170,6 +1547,8 @@ def main() -> int:
         phase_train_parity(torch, port, training, "train_parity_hc", HC_MODEL, group=HC_G)
         phase_train_parity(torch, port, training, "train_parity_hc_learned", HC_LEARNED_MODEL,
                            weights=training.LossWeights(l0_penalty=HC_L0_PENALTY))
+        torch.cuda.empty_cache()
+        fused_launches = phase_train_fused(torch, port, training, counters)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -1190,6 +1569,15 @@ def main() -> int:
         kernel_entry("hard_concrete_learned", csrc + "hard_concrete.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:127",
                      learned_launches["hard_concrete_learned"], hc_kernels["hard_concrete_learned"]),
+        kernel_entry("sccn_combine_fwd", csrc + "sccn_combine.cu", "topo_audio_autoencoder_tpu/ops/sccn_combine.py:90",
+                     fused_launches["sccn_combine_fwd"], combine["fwd"]),
+        kernel_entry("sccn_combine_bwd", csrc + "sccn_combine.cu", "topo_audio_autoencoder_tpu/ops/sccn_combine.py:128",
+                     fused_launches["sccn_combine_bwd"], combine["bwd"]),
+        *(kernel_entry(name, csrc + "sccn_combine.cu", "benchmarks/kernel_diag.py:" + line, diag_launches[name],
+                       diag[name])
+          for name, line in (("sccn_combine_packed_fwd", "125"), ("sccn_combine_packed_bwd", "166"),
+                             ("sccn_combine_copy", "73"), ("sccn_combine_matmul", "80"),
+                             ("sccn_combine_nogelu", "92"))),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

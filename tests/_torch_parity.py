@@ -62,6 +62,14 @@ def flax_params(jax_model, seed: int = SEED, num_samples: int = T,
             jnp.zeros((1, 1, num_samples)), 1.0, jax.random.PRNGKey(2), True,
         )
     )
+    params = random_tree(shapes, seed)
+    params["params"]["encoder"]["mlp2"]["bias"] += np.float32(logit_shift)
+    return params
+
+
+def random_tree(shapes: dict, seed: int) -> dict:
+    """A tree of numpy leaves shaped like ``shapes`` (nested dicts of arrays
+    or shape structs), each drawn from its family by name."""
     rng = np.random.default_rng(seed)
 
     def fill(tree, path=()):
@@ -70,9 +78,7 @@ def flax_params(jax_model, seed: int = SEED, num_samples: int = T,
             for k, v in sorted(tree.items())
         }
 
-    params = fill(shapes)
-    params["params"]["encoder"]["mlp2"]["bias"] += np.float32(logit_shift)
-    return params
+    return fill(shapes)
 
 
 def port_model(params: dict, num_samples: int = T, **options):

@@ -40,6 +40,8 @@ def test_port_modules_do_not_import_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert len(modules) >= 15
+    for kernel_module in ("attention", "fused_samplers", "fused_hard_concrete", "sccn_combine", "combine_diag"):
+        assert f"topo_audio_autoencoder_torch.ops.{kernel_module}" in modules
 
 
 def _imported_roots(path: Path) -> set:

@@ -271,3 +271,123 @@ def test_hard_concrete_kernel_gradients(cuda):
     assert hc.hard_concrete_learned_sample.launches == before + 1
     assert all(r.grad is not None and r.grad.shape == (6195,) and torch.isfinite(r.grad).all() for r in rows)
     assert torch.isfinite(a.grad).all()
+
+
+# The fused SCCN combine (rows 6-10 of the kernel table). Inputs scaled as
+# benchmarks/kernel_diag.make_inputs scales them. fp32: the kernel and the
+# plain version differ in summation order only: y within 1e-5 of its largest
+# element, every gradient within 1e-4 of its own. bf16: the plain version
+# rounds each of its ops to bf16 (about six roundings of 2^-9 between a
+# carrier and y, ten on the way to a gradient), the kernel only its outputs
+# and three product operands: 2^-5 of the largest element bounds both.
+COMBINE_RTOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -5, 2 ** -5)}
+COMBINE_ROWS = [(1, 37), (3, 1000)]  # 37 and 3,000 rows: neither a multiple of the 64-row tile
+
+
+def _combine_inputs(cuda, dtype, m, lead, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(cuda, dtype)
+
+    c = 64
+    car = tuple(t((*lead, c)) for _ in range(m))
+    return car, t((*lead, c)), t((m, c, c), 0.1), t((c, c), 0.1), t((c,), 0.1), t((c, 1), 0.1), t((*lead, c))
+
+
+def _assert_rel(got, want, rtol, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("lead", COMBINE_ROWS, ids=["37rows", "3000rows"])
+def test_combine_kernels_match_plain(cuda, dtype, m, lead):
+    from topo_audio_autoencoder_torch.ops import sccn_combine as sc
+
+    car, x, v, w1, b1, w2, dy = _combine_inputs(cuda, dtype, m, lead)
+    f0, b0 = sc.combine_fwd.launches, sc.combine_bwd.launches
+    y = sc.combine_fwd(car, x, v, w1, b1, w2)
+    grads = sc.combine_bwd(car, x, v, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    assert (sc.combine_fwd.launches, sc.combine_bwd.launches) == (f0 + 1, b0 + 1)
+    fwd_tol, bwd_tol = COMBINE_RTOL[dtype]
+    _assert_rel(y, sc.message_combine_reference(car, x, v, w1, b1, w2), fwd_tol, "y")
+    dcar, *rest = grads
+    want_dcar, *want_rest = sc.combine_bwd_plain(car, x, v, w1, b1, w2, dy)
+    for i, (g, w) in enumerate(zip(dcar, want_dcar)):
+        _assert_rel(g, w, bwd_tol, f"dcar{i}")
+    for name, g, w in zip(("dx", "dv", "dw1", "db1", "dw2"), rest, want_rest):
+        _assert_rel(g, w, bwd_tol, name)
+
+
+def test_fused_combine_autograd_goes_through_both_kernels(cuda):
+    from topo_audio_autoencoder_torch.ops import sccn_combine as sc
+
+    car, x, v, w1, b1, w2, dy = _combine_inputs(cuda, torch.float32, 3, (2, 1140), seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (*car, x, v, w1, b1, w2)]
+    f0, b0 = sc.combine_fwd.launches, sc.combine_bwd.launches
+    y = sc.fused_message_combine(tuple(leaves[:3]), *leaves[3:])
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (sc.combine_fwd.launches, sc.combine_bwd.launches) == (f0 + 1, b0 + 1)
+    dcar, *rest = sc.combine_bwd_plain(car, x, v, w1, b1, w2, dy)
+    for leaf, w in zip(leaves, (*dcar, *rest)):
+        _assert_rel(leaf.grad, w, 1e-4, "grad")
+
+
+def test_combine_kernels_refuse_what_they_were_not_built_for(cuda):
+    from topo_audio_autoencoder_torch.ops import sccn_combine as sc
+
+    car, x, v, w1, b1, w2, _ = _combine_inputs(cuda, torch.float32, 2, (1, 100))
+    with pytest.raises(ValueError):  # C = 32
+        sc.combine_fwd(tuple(t[..., :32] for t in car), x[..., :32], v[:, :32, :32], w1[:32, :32],
+                       b1[:32], w2[:32])
+    with pytest.raises(TypeError):  # mixed dtypes
+        sc.combine_fwd(car, x, v.double(), w1, b1, w2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_packed_combine_kernels_match_plain(cuda, dtype):
+    """Rows 8 and 9 against their plain versions, and autograd through
+    packed_combine launching each once."""
+    from topo_audio_autoencoder_torch.ops import combine_diag as cd
+
+    car, x, v, w1, b1, w2, dy = _combine_inputs(cuda, dtype, 2, (3000,), seed=2)
+    car = torch.stack(car)
+    f0, b0 = cd.packed_combine_fwd.launches, cd.packed_combine_bwd.launches
+    y = cd.packed_combine_fwd(car, x, v, w1, b1, w2)
+    grads = cd.packed_combine_bwd(car, x, v, w1, b1, w2, dy)
+    torch.cuda.synchronize()
+    assert (cd.packed_combine_fwd.launches, cd.packed_combine_bwd.launches) == (f0 + 1, b0 + 1)
+    fwd_tol, bwd_tol = COMBINE_RTOL[dtype]
+    _assert_rel(y, cd.packed_combine_plain(car, x, v, w1, b1, w2), fwd_tol, "y")
+    want = cd.packed_combine_bwd_plain(car, x, v, w1, b1, w2, dy)
+    for name, g, w in zip(("dcar", "dx", "dv", "dw1", "db1", "dw2"), grads, want):
+        _assert_rel(g, w, bwd_tol, name)
+    leaves = [t.clone().requires_grad_(True) for t in (car, x, v, w1, b1, w2)]
+    cd.packed_combine(*leaves).backward(dy)
+    assert (cd.packed_combine_fwd.launches, cd.packed_combine_bwd.launches) == (f0 + 2, b0 + 2)
+    for leaf, w in zip(leaves, want):
+        _assert_rel(leaf.grad, w, bwd_tol, "packed autograd")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("variant", ["copy", "matmul", "nogelu"])
+def test_ablation_kernels_match_plain(cuda, dtype, m, variant):
+    """Row 10's three kernels against their plain versions, 3,000 rows."""
+    from topo_audio_autoencoder_torch.ops import combine_diag as cd
+
+    car, x, v, w1, b1, w2, _ = _combine_inputs(cuda, dtype, m, (3000,), seed=3)
+    car = torch.stack(car)
+    args = {"copy": (car, x), "matmul": (car, x, v), "nogelu": (car, x, v, w1, b1, w2)}[variant]
+    kernel, plain = getattr(cd, f"combine_{variant}"), getattr(cd, f"combine_{variant}_plain")
+    before = kernel.launches
+    y = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _assert_rel(y, plain(*args), COMBINE_RTOL[dtype][0], variant)

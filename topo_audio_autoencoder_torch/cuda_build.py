@@ -23,7 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("masked_attention_fwd", "masked_attention_bwd", "binary_gumbel", "hard_concrete")
+KERNELS = (
+    "masked_attention_fwd", "masked_attention_bwd", "binary_gumbel", "hard_concrete", "sccn_combine",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

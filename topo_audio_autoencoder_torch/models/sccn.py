@@ -15,6 +15,13 @@ softmax over the message axis (``ops.sccn_combine``). Every neighborhood product
 factored ``SimplicialOperators``; the down/up products are computed once
 per layer and shared. LayerNorm is applied only in training and never on
 the final layer, which owns no norm parameters.
+
+``fused_combine`` mirrors the JAX layer's field: when set, every rank of at
+least ``MIN_FUSED_ROWS`` rows (B * S_r) combines through
+``fused_message_combine`` (the CUDA kernels on the card), the others
+through ``message_combine_reference``. It is off by default, and
+``GradientSCCN`` never sets it, as in the JAX package; a caller switches a
+built layer with ``layer.fused_combine = True``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.sccn_combine import message_combine_reference
+from ..ops.sccn_combine import MIN_FUSED_ROWS, fused_message_combine, message_combine_reference
 from ..topology.builder import SimplicialOperators
 from .encoder import layer_norm
 from .init import lecun_normal_
@@ -35,11 +42,12 @@ MAX_RANK = 3
 class GradientSCCNLayer(nn.Module):
     """One masked-static SCCN layer over ranks 0..3."""
 
-    def __init__(self, channels: int, is_final_layer: bool = False):
+    def __init__(self, channels: int, is_final_layer: bool = False, fused_combine: bool = False):
         super().__init__()
         c = channels
         self.channels = c
         self.is_final_layer = is_final_layer
+        self.fused_combine = fused_combine
         # Per-message-type scales, shared across ranks.
         self.scale_same = nn.Parameter(torch.ones(1))
         self.scale_low_to_high = nn.Parameter(torch.ones(1))
@@ -103,7 +111,12 @@ class GradientSCCNLayer(nn.Module):
             # Scales fold into the mix weights: V = W * scale.
             v = torch.stack([w * s for w, s, _ in mixes])  # [M, C, C]
             cars = tuple(cr for _, _, cr in mixes)
-            y = message_combine_reference(
+            combine = (
+                fused_message_combine
+                if self.fused_combine and x.shape[:-1].numel() >= MIN_FUSED_ROWS
+                else message_combine_reference
+            )
+            y = combine(
                 cars, x, v,
                 getattr(self, f"attn_w1_{rank}"),
                 getattr(self, f"attn_b1_{rank}"),

@@ -34,7 +34,7 @@ from .samplers import (
     straight_through,
     temperature_schedule,
 )
-from .sccn_combine import message_combine_reference
+from .sccn_combine import combine_bwd, combine_fwd, fused_message_combine, message_combine_reference
 from .stft import multiscale_stft, spectral_distance, stft_magnitude
 
 __all__ = [
@@ -51,7 +51,10 @@ __all__ = [
     "binary_gumbel_fused_diff",
     "binary_gumbel_plain",
     "binary_gumbel_sample",
+    "combine_bwd",
+    "combine_fwd",
     "fused_masked_attention",
+    "fused_message_combine",
     "hard_concrete",
     "hard_concrete_fused_diff",
     "hard_concrete_fused_learned_diff",
