@@ -14,7 +14,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             with times (CUDA events, median of 30 after warm-up) for the
             kernel, the plain version and one PyTorch library call where
             one computes the same function, and the bound: the attention
-            forward at the codec's shape, the attention backward at the
+            forward at the codec's shape (two calls bit for bit; its split
+            count, blocks, and the device ms of its split and merge kernels
+            from torch.profiler), the attention backward at the
             train step's, the binary-Gumbel sampler at the train step's
             logits (and its generator's statistics over 4M draws), the
             fixed- and learned-stretch Hard Concrete samplers at their
@@ -290,15 +292,42 @@ def attention_bound(q, mask, h: int, dtype_name: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fwd_kernel_ms(torch, fn, reps: int = 20) -> dict:
+    """Device ms per call of each of the forward's two kernels (the split
+    over keys and the merge), from torch.profiler over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {"attn_fwd_partial": 0.0, "attn_fwd_merge": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for kernel in ms:
+            if kernel in e.key:
+                ms[kernel] += e.self_device_time_total / 1e3 / reps
+    check(all(t > 0 for t in ms.values()), f"attention fwd: profiler shows no device time per kernel {ms}")
+    return ms
+
+
 def measure_attention(torch, attention, q, k, v, mask, h: int, tol: float) -> dict:
-    """The kernel against the plain version on the same inputs, and the
-    times of the kernel, the plain version and one library call."""
+    """The kernel against the plain version on the same inputs, two calls
+    bit for bit, and the times of the kernel (and of its merge pass), the
+    plain version and one library call."""
     import torch.nn.functional as F
 
     b, tq, c = q.shape
     name = str(q.dtype).removeprefix("torch.")
     out, lse = attention.attention_fwd(q, k, v, mask, h)
+    again, again_lse = attention.attention_fwd(q, k, v, mask, h)
     torch.cuda.synchronize()
+    check(torch.equal(out, again) and torch.equal(lse, again_lse),
+          f"attention {name}: two calls on the same inputs differ")
     want, want_lse = attention.attention_fwd_plain(q, k, v, mask, h)
     valid = mask.sum(dim=-1) > 0
     err = (out.float() - want.float()).abs().max().item()
@@ -320,9 +349,12 @@ def measure_attention(torch, attention, q, k, v, mask, h: int, tol: float) -> di
     lib_out = library().transpose(1, 2).reshape(b, tq, c)
     lib_err = (lib_out[valid].float() - want[valid].float()).abs().max().item()
     bound_ms, bound_by = attention_bound(q, mask, h, name)
+    splits, blocks = attention.fwd_plan(q, k, h)
+    per_kernel = fwd_kernel_ms(torch, lambda: attention.attention_fwd(q, k, v, mask, h))
     return dict(
         dtype=name, max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
-        library_max_abs_err=lib_err,
+        library_max_abs_err=lib_err, splits=splits, blocks=blocks,
+        partial_ms=per_kernel["attn_fwd_partial"], merge_ms=per_kernel["attn_fwd_merge"],
         ms=time_ms(lambda: attention.attention_fwd(q, k, v, mask, h)),
         plain_ms=time_ms(lambda: attention.attention_fwd_plain(q, k, v, mask, h)),
         library_ms=time_ms(library),

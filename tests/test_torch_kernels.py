@@ -29,8 +29,21 @@ def cuda():
 # fp32: both sides compute in fp32 and differ only in summation order.
 # bf16: both round the fp32 output to bf16 once; one bf16 ulp at |o| <= 4.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
-SHAPES = [(3, 20, 200, 8, 2), (4, 250, 1000, 64, 4)]
-SHAPE_IDS = ["small", "d16"]
+# (B, Q, M, C, H). Beside the first two: ragged and whole 64-key windows and
+# one query row (the split over keys cuts at window edges), and head dims 2,
+# 4, 8 and 32 at the train step's Q and M.
+SHAPES = [
+    (3, 20, 200, 8, 2), (4, 250, 1000, 64, 4),
+    (3, 1, 1, 8, 2), (3, 250, 63, 64, 4), (3, 250, 64, 64, 4), (3, 250, 65, 64, 4),
+    (3, 250, 6175, 8, 4), (3, 250, 6175, 16, 4), (3, 250, 6175, 32, 4), (3, 250, 6175, 128, 4),
+]
+SHAPE_IDS = ["small", "d16", "m1q1", "m63", "m64", "m65", "d2", "d4", "d8", "d32"]
+# The backward on every shape but M=1: there each element has at most one
+# key, so dq is 0 in exact arithmetic and its relative error compares
+# round-off with round-off.
+BWD_SHAPES = [(s, i) for s, i in zip(SHAPES, SHAPE_IDS) if s[2] > 1]
+# The train step's attention: B=16, all 6,175 keys active (S = 9 on an H100).
+TRAIN_SHAPE = (16, 250, 6175, 64, 4)
 
 
 def _attn_inputs(cuda, dtype, shape, seed=0):
@@ -73,7 +86,7 @@ GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+@pytest.mark.parametrize("shape", [s for s, _ in BWD_SHAPES], ids=[i for _, i in BWD_SHAPES])
 def test_attention_backward_kernel_matches_plain(cuda, dtype, shape):
     h = shape[-1]
     query, keys, values, mask, dout = _attn_inputs(cuda, dtype, shape)
@@ -93,6 +106,57 @@ def test_attention_backward_kernel_matches_plain(cuda, dtype, shape):
     assert (dq[0] == 0).all()  # fully masked element
     assert (dk[inactive] == 0).all() and (dv[inactive] == 0).all()  # masked keys: exact zeros
     assert (dq[1] == 0).all()  # a single key: ds = p (dp - dp) = 0
+
+
+def test_attention_kernel_splits_without_active_keys(cuda):
+    """At the train step's Q and M: element 2 has active keys only in the
+    first and the last window, so every split between them has none;
+    element 1 a single key in the ragged last window."""
+    b, q, m, c, h = 3, 250, 6175, 64, 4
+    query, keys, values, mask, _ = _attn_inputs(cuda, torch.float32, (b, q, m, c, h))
+    mask[1] = 0.0
+    mask[1, m - 1] = 1.0
+    mask[2] = 0.0
+    mask[2, [5, 63, m - 2]] = 1.0
+    splits, _ = attention.fwd_plan(query, keys, h)
+    assert splits > 2
+    out, lse = attention.attention_fwd(query, keys, values, mask, h)
+    torch.cuda.synchronize()
+    want, want_lse = attention.attention_fwd_plain(query, keys, values, mask, h)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[torch.float32]
+    assert (out[0] == 0).all() and torch.isposinf(lse[0]).all()
+    torch.testing.assert_close(lse[1:], want_lse[1:], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_forward_is_deterministic(cuda, dtype):
+    """The split's partials merge in split order, without atomics: two calls
+    on the same inputs give the same bits."""
+    query, keys, values, mask, _ = _attn_inputs(cuda, dtype, TRAIN_SHAPE)
+    mask[2:] = 1.0
+    out, lse = attention.attention_fwd(query, keys, values, mask, TRAIN_SHAPE[-1])
+    again, again_lse = attention.attention_fwd(query, keys, values, mask, TRAIN_SHAPE[-1])
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+def test_attention_backward_on_split_forward(cuda):
+    """The backward kernel fed the split forward's O and L, at the train
+    step's shape with every key active, against the plain backward fed the
+    plain forward's."""
+    h = TRAIN_SHAPE[-1]
+    query, keys, values, mask, dout = _attn_inputs(cuda, torch.float32, TRAIN_SHAPE)
+    mask[2:] = 1.0
+    assert attention.fwd_plan(query, keys, h)[0] > 1
+    out, lse = attention.attention_fwd(query, keys, values, mask, h)
+    got = attention.attention_bwd(query, keys, values, mask, out, lse, dout, h)
+    torch.cuda.synchronize()
+    plain_out, plain_lse = attention.attention_fwd_plain(query, keys, values, mask, h)
+    want = attention.attention_bwd_plain(query, keys, values, mask, plain_out, plain_lse, dout, h)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        assert err <= GRAD_RTOL[torch.float32] * scale, (name, err, scale)
 
 
 def test_attention_autograd_goes_through_both_kernels(cuda):

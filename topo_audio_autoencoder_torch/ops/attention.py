@@ -10,7 +10,11 @@ Port of ``topo_audio_autoencoder_tpu.ops.attention``. Semantics:
 
 ``attention_fwd`` runs ``csrc/masked_attention_fwd.cu`` for CUDA tensors
 and the plain version ``attention_fwd_plain`` for CPU tensors; it never
-falls back from one to the other. Besides the output it returns the per-row
+falls back from one to the other. The CUDA forward splits the keys into
+``_num_splits`` contiguous ranges, one block per range, and merges the
+ranges' partial softmax sums in a second kernel, in split order;
+``attention_fwd_split_plain`` does the same arithmetic in torch, for the
+tests. Besides the output it returns the per-row
 log-sum-exp L [B, H, Q] (fp32, +inf for a fully masked element), the
 residual from which ``attention_bwd`` (``csrc/masked_attention_bwd.cu``,
 or ``attention_bwd_plain`` on the CPU) recomputes the weights as
@@ -28,6 +32,12 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (2, 4, 8, 16, 32)
+# The forward kernel's tiling (csrc/masked_attention_fwd.cu): query rows per
+# block, keys per window; a split over keys is a range of whole windows.
+ROWS_PER_BLOCK = 256
+KEY_TILE = 64
+# Blocks the split aims at on each SM.
+_BLOCKS_PER_SM = 4
 
 
 def attention_fwd_plain(query, keys, values, key_mask, num_heads):
@@ -50,6 +60,57 @@ def attention_fwd_plain(query, keys, values, key_mask, num_heads):
     lse = torch.logsumexp(scores, dim=-1)
     lse = torch.where(any_valid[..., 0], lse, torch.full_like(lse, math.inf))
     return out.to(query.dtype), lse
+
+
+def _num_splits(b, h, tq, m, num_sms):
+    """Splits over keys of the CUDA forward at this shape: about
+    ``_BLOCKS_PER_SM`` blocks on each of ``num_sms`` SMs, at least 1 and at
+    most one 64-key window each. A pure function of its arguments."""
+    windows = -(-m // KEY_TILE)
+    blocks = -(-tq // ROWS_PER_BLOCK) * h * b
+    return max(1, min(-(-_BLOCKS_PER_SM * num_sms // blocks), windows))
+
+
+def split_bounds(m, num_splits, tile=KEY_TILE):
+    """Key ranges [lo, hi) of the splits: split s takes the whole windows
+    [s*T/S, (s+1)*T/S) of the T = ceil(m/tile) windows."""
+    windows = -(-m // tile)
+    return [
+        (s * windows // num_splits * tile, min((s + 1) * windows // num_splits * tile, m))
+        for s in range(num_splits)
+    ]
+
+
+def attention_fwd_split_plain(query, keys, values, key_mask, num_heads, num_splits, tile=KEY_TILE):
+    """The CUDA forward's arithmetic in torch (fp32), for the tests: per
+    split and row the max m_s, the sum l_s and the unnormalised accumulator
+    acc_s over that split's active keys (m_s = -inf, l_s = 0 for a split
+    with none), merged in split order. Returns (out [B, Q, C] in the input
+    dtype, lse [B, H, Q] fp32), zeros and +inf where the element is fully
+    masked."""
+    b, tq, c = query.shape
+    h, d = num_heads, c // num_heads
+    q, k, v = (_split(t, num_heads) for t in (query, keys, values))
+    active = (key_mask > 0)[:, None, None, :]  # [B, 1, 1, M]
+    parts = []
+    for lo, hi in split_bounds(keys.shape[1], num_splits, tile):
+        s = torch.einsum("bqhd,bmhd->bhqm", q, k[:, lo:hi]) / math.sqrt(d)
+        s = torch.where(active[..., lo:hi], s, -math.inf)
+        m_s = s.amax(dim=-1) if hi > lo else s.new_full((b, h, tq), -math.inf)
+        p = torch.exp(s - torch.where(torch.isinf(m_s), 0.0, m_s)[..., None])
+        parts.append((m_s, p.sum(dim=-1), torch.einsum("bhqm,bmhd->bhqd", p, v[:, lo:hi])))
+    m = torch.stack([m_s for m_s, _, _ in parts]).amax(dim=0)
+    valid = m > -math.inf
+    m_safe = torch.where(valid, m, 0.0)
+    l = torch.zeros_like(m)
+    acc = q.new_zeros((b, h, tq, d))
+    for m_s, l_s, acc_s in parts:  # in split order
+        w = torch.exp(m_s - m_safe)  # 0 for a split with no active key
+        l = l + w * l_s
+        acc = acc + w[..., None] * acc_s
+    out = torch.where(valid[..., None], acc / torch.where(valid, l, 1.0)[..., None], 0.0)
+    lse = torch.where(valid, m + torch.log(l), math.inf)
+    return out.permute(0, 2, 1, 3).reshape(b, tq, c).to(query.dtype), lse
 
 
 def reference_attention(query, keys, values, key_mask, num_heads):
@@ -117,25 +178,41 @@ def _kernel():
     from ..cuda_build import load
 
     fn = load("masked_attention_fwd").masked_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_plan(query, keys, num_heads):
+    """(splits, blocks of the partial kernel) of the CUDA forward for these
+    CUDA inputs."""
+    b, tq, _ = query.shape
+    splits = _num_splits(b, num_heads, tq, keys.shape[1], _sm_count(query.device.index))
+    return splits, -(-tq // ROWS_PER_BLOCK) * num_heads * b * splits
 
 
 def _launch_cuda(query, keys, values, key_mask, num_heads):
     b, tq, c = query.shape
     tm = keys.shape[1]
     _check_cuda(query, keys, values, num_heads)
+    splits, _ = fwd_plan(query, keys, num_heads)
     mask = key_mask.to(torch.float32).contiguous()
     out = torch.empty_like(query)
     lse = torch.empty((b, num_heads, tq), dtype=torch.float32, device=query.device)
+    # The splits' fp32 partials: acc [S, B, H, Q, D], then m and l [S, B, H, Q].
+    work = torch.empty(splits * b * tq * (c + 2 * num_heads), dtype=torch.float32, device=query.device)
     fn = _kernel()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = fn(
             query.data_ptr(), keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(),
-            b, tq, tm, c, num_heads, _DTYPE_CODES[query.dtype], stream,
+            out.data_ptr(), lse.data_ptr(), work.data_ptr(),
+            b, tq, tm, c, num_heads, splits, _DTYPE_CODES[query.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"masked_attention_fwd launch failed: CUDA error {err}")
@@ -223,7 +300,8 @@ def attention_fwd(query, keys, values, key_mask, num_heads):
     """Masked attention forward -> (out [B, Q, C], lse [B, H, Q] fp32).
 
     CPU tensors take the plain version; CUDA tensors launch the CUDA
-    kernel (``launches`` counts those launches); any other device raises.
+    kernels, the split and the merge (``launches`` counts those calls, one
+    per call); any other device raises.
     """
     _check(query, keys, values, key_mask, num_heads)
     device = query.device
