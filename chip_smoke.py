@@ -17,10 +17,13 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             forward at the codec's shape (two calls bit for bit; its split
             count, blocks, and the device ms of its split and merge kernels
             from torch.profiler), the attention backward at the
-            train step's, the binary-Gumbel sampler at the train step's
-            logits (and its generator's statistics over 4M draws), the
-            fixed- and learned-stretch Hard Concrete samplers at their
-            train steps' log-alpha (and the gates' clip statistics).
+            train step's (two calls bit for bit; its split count, blocks,
+            the device ms of each of its four kernels, and SDPA's backward
+            alone beside SDPA forward + backward), the binary-Gumbel
+            sampler at the train step's logits (and its generator's
+            statistics over 4M draws), the fixed- and learned-stretch Hard
+            Concrete samplers at their train steps' log-alpha (and the
+            gates' clip statistics).
    kernel_combine  the fused SCCN combine's forward and backward kernels
             against the plain version and its autograd at the train step's
             two fused ranks (rank 3: M=2, 77,520 rows; rank 2: M=3, 18,240
@@ -80,6 +83,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -292,9 +296,10 @@ def attention_bound(q, mask, h: int, dtype_name: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fwd_kernel_ms(torch, fn, reps: int = 20) -> dict:
-    """Device ms per call of each of the forward's two kernels (the split
-    over keys and the merge), from torch.profiler over ``reps`` calls."""
+def kernel_ms(torch, fn, kernels, what: str, reps: int = 20) -> dict:
+    """Device ms per call of each named kernel that ``fn`` launches, from
+    torch.profiler over ``reps`` calls (a kernel's name matches where it is
+    a substring of the profiler's key)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -304,15 +309,34 @@ def fwd_kernel_ms(torch, fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ms = {"attn_fwd_partial": 0.0, "attn_fwd_merge": 0.0}
+    ms = dict.fromkeys(kernels, 0.0)
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         for kernel in ms:
             if kernel in e.key:
                 ms[kernel] += e.self_device_time_total / 1e3 / reps
-    check(all(t > 0 for t in ms.values()), f"attention fwd: profiler shows no device time per kernel {ms}")
+    check(all(t > 0 for t in ms.values()), f"{what}: profiler shows no device time per kernel {ms}")
     return ms
+
+
+def fwd_kernel_ms(torch, fn) -> dict:
+    """The forward's two kernels: the split over keys and the merge."""
+    return kernel_ms(torch, fn, ("attn_fwd_partial", "attn_fwd_merge"), "attention fwd")
+
+
+def csrc_kernels(name: str) -> tuple:
+    """The __global__ functions of the port's csrc/<name>.cu, in source order."""
+    from topo_audio_autoencoder_torch import cuda_build
+
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    return tuple(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(", src))
+
+
+def bwd_kernel_ms(torch, fn) -> dict:
+    """The backward's kernels, each of csrc/masked_attention_bwd.cu's by name
+    (one call launches each once)."""
+    return kernel_ms(torch, fn, csrc_kernels("masked_attention_bwd"), "attention bwd")
 
 
 def measure_attention(torch, attention, q, k, v, mask, h: int, tol: float) -> dict:
@@ -409,14 +433,19 @@ def attention_bwd_bound(q, mask, h: int, dtype_name: str) -> tuple[float, str]:
 def measure_attention_bwd(torch, attention, q, k, v, mask, dout, h: int) -> dict:
     """The backward kernels against the plain backward on the same inputs;
     masked dK/dV rows and a fully masked element's gradients exactly zero;
-    times of the kernel, the plain version and SDPA forward + backward."""
+    two calls bit for bit; times of the kernels (the whole call and each
+    kernel), the plain version, SDPA forward + backward and SDPA's backward
+    alone."""
     import torch.nn.functional as F
 
     b, tq, c = q.shape
     name = str(q.dtype).removeprefix("torch.")
     out, lse = attention.attention_fwd(q, k, v, mask, h)
     got = attention.attention_bwd(q, k, v, mask, out, lse, dout, h)
+    again = attention.attention_bwd(q, k, v, mask, out, lse, dout, h)
     torch.cuda.synchronize()
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"attention bwd {name}: two calls on the same inputs differ")
     want = attention.attention_bwd_plain(q, k, v, mask, out, lse, dout, h)
     errs, rels = {}, {}
     for key, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -431,8 +460,8 @@ def measure_attention_bwd(torch, attention, q, k, v, mask, dout, h: int) -> dict
     empty = mask.sum(dim=-1) == 0
     check(bool((dq[empty] == 0).all()), f"attention bwd {name}: fully masked element's dq not zero")
 
-    # SDPA forward + backward through autograd: a yardstick only, never
-    # called by the port.
+    # SDPA through autograd: a yardstick only, never called by the port.
+    # forward + backward, and the backward alone on one saved forward.
     qh, kh, vh = (t.view(t.shape[0], t.shape[1], h, c // h).transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     doh = dout.view(b, tq, h, c // h).transpose(1, 2)
@@ -442,13 +471,22 @@ def measure_attention_bwd(torch, attention, q, k, v, mask, dout, h: int) -> dict
         o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bool_mask)
         return torch.autograd.grad(o, (qh, kh, vh), doh)
 
+    saved = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bool_mask)
+
+    def library_bwd():
+        return torch.autograd.grad(saved, (qh, kh, vh), doh, retain_graph=True)
+
     bound_ms, bound_by = attention_bwd_bound(q, mask, h, name)
+    # A parent tree, unpacked to compare with, may predate the split backward.
+    plan = getattr(attention, "bwd_plan", None)
+    splits, blocks = plan(q, k, h) if plan else (None, None)
+    call = lambda: attention.attention_bwd(q, k, v, mask, out, lse, dout, h)  # noqa: E731
     return dict(
         dtype=name, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, rel_err=rels,
-        tol_rel=TOL_BWD[name],
-        ms=time_ms(lambda: attention.attention_bwd(q, k, v, mask, out, lse, dout, h)),
+        tol_rel=TOL_BWD[name], splits=splits, blocks=blocks, per_kernel_ms=bwd_kernel_ms(torch, call),
+        ms=time_ms(call),
         plain_ms=time_ms(lambda: attention.attention_bwd_plain(q, k, v, mask, out, lse, dout, h)),
-        library_ms=time_ms(library),
+        library_ms=time_ms(library), library_bwd_ms=time_ms(library_bwd),
         bound_ms=bound_ms, bound_by=bound_by,
         active_keys=int((mask > 0).sum().item()), keys=int(mask.numel()),
     )

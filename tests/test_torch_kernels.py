@@ -30,14 +30,16 @@ def cuda():
 # bf16: both round the fp32 output to bf16 once; one bf16 ulp at |o| <= 4.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # (B, Q, M, C, H). Beside the first two: ragged and whole 64-key windows and
-# one query row (the split over keys cuts at window edges), and head dims 2,
-# 4, 8 and 32 at the train step's Q and M.
+# one query row (the split over keys cuts at window edges), the backward's
+# 256-key dk/dv ranges at their edges, and head dims 2, 4, 8 and 32 at the
+# train step's Q and M.
 SHAPES = [
     (3, 20, 200, 8, 2), (4, 250, 1000, 64, 4),
     (3, 1, 1, 8, 2), (3, 250, 63, 64, 4), (3, 250, 64, 64, 4), (3, 250, 65, 64, 4),
+    (3, 250, 255, 64, 4), (3, 250, 256, 64, 4), (3, 250, 257, 64, 4),
     (3, 250, 6175, 8, 4), (3, 250, 6175, 16, 4), (3, 250, 6175, 32, 4), (3, 250, 6175, 128, 4),
 ]
-SHAPE_IDS = ["small", "d16", "m1q1", "m63", "m64", "m65", "d2", "d4", "d8", "d32"]
+SHAPE_IDS = ["small", "d16", "m1q1", "m63", "m64", "m65", "m255", "m256", "m257", "d2", "d4", "d8", "d32"]
 # The backward on every shape but M=1: there each element has at most one
 # key, so dq is 0 in exact arithmetic and its relative error compares
 # round-off with round-off.
@@ -138,6 +140,43 @@ def test_attention_forward_is_deterministic(cuda, dtype):
     again, again_lse = attention.attention_fwd(query, keys, values, mask, TRAIN_SHAPE[-1])
     torch.cuda.synchronize()
     assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_backward_is_deterministic(cuda, dtype):
+    """dq's split partials merge in split order and every dk/dv row has one
+    owner, without atomics: two calls on the same inputs give the same bits."""
+    h = TRAIN_SHAPE[-1]
+    query, keys, values, mask, dout = _attn_inputs(cuda, dtype, TRAIN_SHAPE)
+    mask[2:] = 1.0
+    assert attention.bwd_plan(query, keys, h)[0] > 1
+    out, lse = attention.attention_fwd(query, keys, values, mask, h)
+    got = attention.attention_bwd(query, keys, values, mask, out, lse, dout, h)
+    again = attention.attention_bwd(query, keys, values, mask, out, lse, dout, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(3, 250, 300, 64, 4), (3, 250, 300, 128, 4)], ids=["d16", "d32"])
+def test_attention_backward_odd_active_keys_in_a_range(cuda, shape):
+    """Element 2 holds an odd number of active keys in each dk/dv range (5 in
+    the first 256 keys, 3 in the ragged rest), so at D = 16 one thread's
+    second slot is empty; every masked key of the range gets zero rows."""
+    h = shape[-1]
+    query, keys, values, mask, dout = _attn_inputs(cuda, torch.float32, shape)
+    mask[2] = 0.0
+    mask[2, [0, 31, 32, 130, 255, 256, 270, 299]] = 1.0
+    out, lse = attention.attention_fwd(query, keys, values, mask, h)
+    got = attention.attention_bwd(query, keys, values, mask, out, lse, dout, h)
+    torch.cuda.synchronize()
+    want = attention.attention_bwd_plain(query, keys, values, mask, out, lse, dout, h)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        assert err <= GRAD_RTOL[torch.float32] * scale, (name, err, scale)
+    inactive = mask == 0
+    assert (got[1][inactive] == 0).all() and (got[2][inactive] == 0).all()
 
 
 def test_attention_backward_on_split_forward(cuda):

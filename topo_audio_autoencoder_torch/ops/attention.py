@@ -18,8 +18,11 @@ tests. Besides the output it returns the per-row
 log-sum-exp L [B, H, Q] (fp32, +inf for a fully masked element), the
 residual from which ``attention_bwd`` (``csrc/masked_attention_bwd.cu``,
 or ``attention_bwd_plain`` on the CPU) recomputes the weights as
-exp(s - L). ``MaskedAttention`` ties the two into one autograd Function,
-the same on both devices.
+exp(s - L). The CUDA backward computes dk and dv per key range and dq as
+the forward's split over keys, summing the splits' partial dq in split
+order in a merge kernel; ``attention_bwd_split_plain`` does that dq
+arithmetic in torch, for the tests. ``MaskedAttention`` ties the two into
+one autograd Function, the same on both devices.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ ROWS_PER_BLOCK = 256
 KEY_TILE = 64
 # Blocks the split aims at on each SM.
 _BLOCKS_PER_SM = 4
+# The backward's dk/dv kernel (csrc/masked_attention_bwd.cu): threads per
+# block, each owning two keys at head dims up to 16 and one above.
+DKDV_THREADS = 128
 
 
 def attention_fwd_plain(query, keys, values, key_mask, num_heads):
@@ -172,6 +178,28 @@ def attention_bwd_plain(query, keys, values, key_mask, out, lse, dout, num_heads
     )
 
 
+def attention_bwd_split_plain(query, keys, values, key_mask, out, lse, dout, num_heads, num_splits,
+                              tile=KEY_TILE):
+    """The CUDA backward's dq arithmetic in torch (fp32), for the tests:
+    per split of whole ``tile``-key windows the partial sum_j ds_ij k_j over
+    that split's active keys (0 for a split with none), summed in split
+    order and then scaled by 1/sqrt(D). dk and dv as in
+    ``attention_bwd_plain``. Returns (dq, dk, dv) in the input dtypes."""
+    d = query.shape[-1] // num_heads
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, o, do = (_split(t, num_heads) for t in (query, keys, values, out, dout))
+    active = (key_mask > 0)[:, None, None, :]  # [B, 1, 1, M]
+    delta = (do * o).sum(dim=-1).permute(0, 2, 1)[..., None]  # [B, H, Q, 1]
+    dq = q.new_zeros(q.shape)
+    for lo, hi in split_bounds(keys.shape[1], num_splits, tile):  # in split order
+        s = torch.einsum("bqhd,bmhd->bhqm", q, k[:, lo:hi]) * scale
+        p = torch.where(active[..., lo:hi], torch.exp(s - lse[..., None]), 0.0)
+        ds = p * (torch.einsum("bqhd,bmhd->bhqm", do, v[:, lo:hi]) - delta)
+        dq = dq + torch.einsum("bhqm,bmhd->bqhd", ds, k[:, lo:hi])
+    _, dk, dv = attention_bwd_plain(query, keys, values, key_mask, out, lse, dout, num_heads)
+    return (dq * scale).reshape(query.shape).to(query.dtype), dk, dv
+
+
 @lru_cache(maxsize=None)
 def _kernel():
     """The C entry point of csrc/masked_attention_fwd.cu, built on first use."""
@@ -226,7 +254,7 @@ def _bwd_kernel():
     from ..cuda_build import load
 
     fn = load("masked_attention_bwd").masked_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -244,6 +272,22 @@ def _check_cuda(query, keys, values, num_heads):
         raise ValueError(f"the CUDA kernels do not take B={b}, Q={tq}, H={num_heads}")
 
 
+def bwd_plan(query, keys, num_heads):
+    """(splits of dq, {kernel: blocks}) of the CUDA backward for these CUDA
+    inputs: the dk/dv kernel's key ranges and the dq split's blocks."""
+    b, tq, c = query.shape
+    splits, dq_blocks = fwd_plan(query, keys, num_heads)
+    keys_per_block = DKDV_THREADS * (2 if c // num_heads <= 16 else 1)
+    dkdv_blocks = -(-keys.shape[1] // keys_per_block) * num_heads * b
+    return splits, {"attn_bwd_dkdv": dkdv_blocks, "attn_bwd_dq_partial": dq_blocks}
+
+
+def _aligned(t):
+    """``t``, or a copy whose data starts on a 16-byte boundary: the
+    backward kernels load rows as 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_bwd_cuda(query, keys, values, key_mask, out, lse, dout, num_heads):
     b, tq, c = query.shape
     tm = keys.shape[1]
@@ -252,8 +296,10 @@ def _launch_bwd_cuda(query, keys, values, key_mask, out, lse, dout, num_heads):
         raise ValueError("out and dout must have the query's shape")
     if lse.shape != (b, num_heads, tq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 [B, H, Q], not {lse.dtype} {tuple(lse.shape)}")
+    splits, _ = bwd_plan(query, keys, num_heads)
+    query, keys, values = (_aligned(t) for t in (query, keys, values))
     out = out.to(query.dtype).contiguous()
-    dout = dout.to(query.dtype).contiguous()
+    dout = _aligned(dout.to(query.dtype).contiguous())
     lse = lse.contiguous()
     mask = key_mask.to(torch.float32).contiguous()
     # Every element of dq, dk and dv is written by the kernels, masked key
@@ -262,14 +308,16 @@ def _launch_bwd_cuda(query, keys, values, key_mask, out, lse, dout, num_heads):
     dk = torch.empty_like(keys)
     dv = torch.empty_like(values)
     delta = torch.empty((b, num_heads, tq), dtype=torch.float32, device=query.device)
+    # The splits' fp32 partial dq [S, B, H, Q, D].
+    work = torch.empty(splits * b * tq * c, dtype=torch.float32, device=query.device)
     fn = _bwd_kernel()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         err = fn(
             query.data_ptr(), keys.data_ptr(), values.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), work.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, tq, tm, c, num_heads, _DTYPE_CODES[query.dtype], stream,
+            b, tq, tm, c, num_heads, splits, _DTYPE_CODES[query.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(f"masked_attention_bwd launch failed: CUDA error {err}")
@@ -282,7 +330,8 @@ def attention_bwd(query, keys, values, key_mask, out, lse, dout, num_heads):
     its output and its log-sum-exp L, and the output's gradient dout.
 
     CPU tensors take the plain version; CUDA tensors launch the CUDA
-    kernels (``launches`` counts those calls); any other device raises.
+    kernels, four a call (``launches`` counts those calls, one per call);
+    any other device raises.
     """
     _check(query, keys, values, key_mask, num_heads)
     device = query.device
