@@ -9,6 +9,10 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 
 1. env      the card (nvidia-smi name and power limit), versions, the
             kernels' build (all sources compiled at once, one nvcc each).
+   combine_build  every instance of csrc/sccn_combine.cu's kernels, read
+            back from the library with cuobjdump: registers, stack and local
+            memory, and a census of its SASS (FFMA, LDS.128, other shared
+            loads, barriers, MUFU, STL/LDL). None may spill.
 2. kernel   each CUDA kernel against its plain torch version on the card,
             on synthetic inputs at its main-path shape, in fp32 and bf16,
             with times (CUDA events, median of 30 after warm-up) for the
@@ -27,7 +31,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
    kernel_combine  the fused SCCN combine's forward and backward kernels
             against the plain version and its autograd at the train step's
             two fused ranks (rank 3: M=2, 77,520 rows; rank 2: M=3, 18,240
-            rows) and a ragged M=1 case, fp32 and bf16, with times and bounds.
+            rows) and a ragged M=1 case, fp32 and bf16, with times and bounds,
+            two calls bit for bit, each kernel's device ms (torch.profiler),
+            and each kernel's blocks and longest row range.
    combine_diag  benchmarks/kernel_diag.py's ladder on the card: the packed
             kernels' parity (512 rows, fp32, forward and six cotangents), then
             at its default shape (bf16, M=2, 1,860,480 rows) every variant's
@@ -71,7 +77,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             (train_parity's bounds), and one 8-clip decode's waveform fused
             against unfused on one shared latent. Every earlier phase
             launches the combine kernels (rows 6-10) zero times.
-13. kernels  one line per kernel: route, source, launches (its train
+13. profiler  how many kernel profiles the run took, and which of them
+            recorded no device activity at first and were taken again.
+14. kernels  one line per kernel: route, source, launches (its train
             step; combine_diag's ladder for rows 8-10), error, times (at its
             train step's shape; the ladder's for rows 8-10).
 
@@ -88,6 +96,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -296,23 +305,37 @@ def attention_bound(q, mask, h: int, dtype_name: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# kernel_ms's profiles in this run: how many, and which had to be taken twice.
+PROFILES = {"profiles": 0, "retried": []}
+
+
 def kernel_ms(torch, fn, kernels, what: str, reps: int = 20) -> dict:
     """Device ms per call of each named kernel that ``fn`` launches, from
     torch.profiler over ``reps`` calls (a kernel's name matches where it is
-    a substring of the profiler's key)."""
+    a substring of the profiler's key). A profile that recorded no device
+    activity at all (its CUDA tracing did not start: seen once in an H100
+    run, cause unknown) is taken once more and recorded in PROFILES, which
+    the run prints; a named kernel without device time fails the check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    PROFILES["profiles"] += 1
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if any(e.self_device_time_total > 0 for e in device):
+            break
+        if attempt == 0:
+            PROFILES["retried"].append(what)
+        print(f"chip_smoke: {what}: the profile recorded no device activity (attempt {attempt + 1})",
+              file=sys.stderr, flush=True)
     ms = dict.fromkeys(kernels, 0.0)
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device:
         for kernel in ms:
             if kernel in e.key:
                 ms[kernel] += e.self_device_time_total / 1e3 / reps
@@ -337,6 +360,12 @@ def bwd_kernel_ms(torch, fn) -> dict:
     """The backward's kernels, each of csrc/masked_attention_bwd.cu's by name
     (one call launches each once)."""
     return kernel_ms(torch, fn, csrc_kernels("masked_attention_bwd"), "attention bwd")
+
+
+def combine_kernel_ms(torch, fn) -> dict:
+    """The fused combine's kernels, each of csrc/sccn_combine.cu's by name:
+    ``fn`` runs one forward and one backward call."""
+    return kernel_ms(torch, fn, csrc_kernels("sccn_combine"), "sccn combine")
 
 
 def measure_attention(torch, attention, q, k, v, mask, h: int, tol: float) -> dict:
@@ -1263,6 +1292,95 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / max(want.float().abs().max().item(), 1e-30)
 
 
+# An instance of csrc/sccn_combine.cu's kernels in a mangled name: the kernel,
+# its type and, for the combine kernels, M and the Mode.
+COMBINE_INSTANCE = re.compile(r"(combine_fwd_kernel|combine_bwd_kernel|reduce_partials)I(f|13__nv_bfloat16)"
+                              r"(?:Li(\d)ELi(\d)E)?")
+
+
+def combine_instance(mangled: str):
+    found = COMBINE_INSTANCE.search(mangled)
+    if found is None:
+        return None
+    kernel, elt, m, mode = found.groups()
+    dtype = "float32" if elt == "f" else "bfloat16"
+    return f"{kernel}<{dtype}" + (f", M={m}, mode={mode}>" if m else ">")
+
+
+def sass_census(sass: str) -> dict:
+    """Per kernel instance of a cuobjdump -sass listing: its instructions,
+    FFMA, 16-byte shared loads (LDS.128), other shared loads, barriers, the
+    MUFU.EX2 / MUFU.RCP / MUFU.TANH of its exp, tanhf and divisions, and its
+    local-memory stores and loads (STL, LDL: register spills)."""
+    census, name = {}, None
+    for line in sass.splitlines():
+        header = re.search(r"Function : (\S+)", line)
+        if header:
+            name = combine_instance(header.group(1))
+            if name is not None:
+                census[name] = dict.fromkeys(("instructions", "ffma", "lds128", "lds_other", "bar", "mufu_ex2",
+                                              "mufu_rcp", "mufu_tanh", "stl", "ldl"), 0)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is None or op is None:
+            continue
+        op = op.group(1)
+        counts = census[name]
+        counts["instructions"] += 1
+        counts["ffma"] += op.startswith("FFMA")
+        counts["lds128"] += op.startswith("LDS") and ".128" in op
+        counts["lds_other"] += op.startswith("LDS") and ".128" not in op
+        counts["bar"] += op.startswith("BAR")
+        counts["mufu_ex2"] += op == "MUFU.EX2"
+        counts["mufu_rcp"] += op == "MUFU.RCP"
+        counts["mufu_tanh"] += op == "MUFU.TANH"
+        counts["stl"] += op.startswith("STL")
+        counts["ldl"] += op.startswith("LDL")
+    return census
+
+
+def resource_usage(listing: str) -> dict:
+    """Per kernel instance of a cuobjdump -res-usage listing: registers,
+    stack and local-memory bytes per thread."""
+    usage, name = {}, None
+    for line in listing.splitlines():
+        header = re.search(r"Function (\S+?):", line)
+        if header:
+            name = combine_instance(header.group(1))
+            continue
+        found = {key: re.search(rf"\b{key}:(\d+)", line) for key in ("REG", "STACK", "LOCAL")}
+        if name is not None and all(found.values()):
+            usage[name] = dict(registers=int(found["REG"].group(1)), stack_bytes=int(found["STACK"].group(1)),
+                               local_bytes=int(found["LOCAL"].group(1)))
+            name = None
+    return usage
+
+
+def phase_combine_build() -> None:
+    """csrc/sccn_combine.cu as built, read back from the library with
+    cuobjdump, so that a library built by an earlier run is read too: each
+    kernel instance's registers, stack and local memory (-res-usage) and
+    its SASS census (-sass). Fails if any instance spills: local memory in
+    its resource usage, or an STL or LDL in its SASS."""
+    from topo_audio_autoencoder_torch import cuda_build
+
+    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    library = str(cuda_build.library_path("sccn_combine"))
+
+    def listing(flag: str) -> str:
+        return subprocess.run([str(cuobjdump), flag, library], capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+
+    usage = resource_usage(listing("-res-usage"))
+    census = sass_census(listing("-sass"))
+    check(bool(census) and usage.keys() == census.keys(),
+          f"cuobjdump: resource usage for {sorted(usage)}, SASS for {sorted(census)}")
+    spills = {k: dict(local_bytes=usage[k]["local_bytes"], stl=c["stl"], ldl=c["ldl"])
+              for k, c in census.items() if usage[k]["local_bytes"] or c["stl"] or c["ldl"]}
+    check(not spills, f"sccn_combine kernels spill: {spills}")
+    emit("combine_build", usage=usage, sass=census)
+
+
 def phase_kernel_combine(torch, sc) -> dict:
     """Rows 6 and 7 against message_combine_reference and autograd through
     it, on the same inputs, at COMBINE_SHAPES in fp32 and bf16. bf16 also
@@ -1277,7 +1395,13 @@ def phase_kernel_combine(torch, sc) -> dict:
             args = (car, x, v, w1, b1, w2)
             y = sc.combine_fwd(*args)
             dcar, *grads = sc.combine_bwd(*args, dy)
+            again = sc.combine_fwd(*args)
+            again_dcar, *again_grads = sc.combine_bwd(*args, dy)
             torch.cuda.synchronize()
+            check(torch.equal(y, again), f"combine fwd M={m} {name}: two calls on the same inputs differ")
+            check(all(torch.equal(a, b) for a, b in zip((*dcar, *grads), (*again_dcar, *again_grads))),
+                  f"combine bwd M={m} {name}: two calls on the same inputs differ")
+            del again, again_dcar, again_grads
             want_y = sc.message_combine_reference(*args)
             want_dcar, *want_grads = sc.combine_bwd_plain(*args, dy)
             fwd_tol, bwd_tol = TOL_COMBINE[name]
@@ -1296,16 +1420,22 @@ def phase_kernel_combine(torch, sc) -> dict:
                                                        for t in args))
                 extra = dict(kernel_rel_err_vs_fp32_plain=rel_err(y, exact)[1],
                              plain_rel_err_vs_fp32_plain=rel_err(want_y, exact)[1])
+            plan = {}
+            for key, backward in (("fwd", False), ("bwd", True)):
+                blocks = sc.kernel_blocks(rows, m, dtype, backward=backward)
+                longest = max(end - start for start, end in sc.combine_row_ranges(rows, blocks))
+                plan[key] = dict(blocks=blocks, longest_range_rows=longest)
+            per_kernel = combine_kernel_ms(torch, lambda: (sc.combine_fwd(*args), sc.combine_bwd(*args, dy)))
             elt = x.element_size()
             f_bound, f_by = combine_bound("full", m, rows, elt, name)
             b_bound, b_by = combine_bound("full", m, rows, elt, name, backward=True)
             results.append(dict(
-                m=m, rows=rows, dtype=name,
-                fwd=dict(max_abs_err=y_err, rel_err=y_rel, tol_rel=fwd_tol,
+                m=m, rows=rows, dtype=name, per_kernel_ms=per_kernel,
+                fwd=dict(**plan["fwd"], max_abs_err=y_err, rel_err=y_rel, tol_rel=fwd_tol,
                          ms=time_ms(lambda: sc.combine_fwd(*args)),
                          plain_ms=time_ms(lambda: sc.message_combine_reference(*args)),
                          library_ms=None, bound_ms=f_bound, bound_by=f_by, **extra),
-                bwd=dict(max_abs_err=max(e for e, _ in bwd.values()), rel_err={k: r for k, (_, r) in bwd.items()},
+                bwd=dict(**plan["bwd"], max_abs_err=max(e for e, _ in bwd.values()), rel_err={k: r for k, (_, r) in bwd.items()},
                          tol_rel=bwd_tol, ms=time_ms(lambda: sc.combine_bwd(*args, dy)),
                          plain_ms=time_ms(lambda: sc.combine_bwd_plain(*args, dy)),
                          library_ms=None, bound_ms=b_bound, bound_by=b_by),
@@ -1583,6 +1713,7 @@ def main() -> int:
         "sccn_combine_nogelu": cd.combine_nogelu,
     }
     try:
+        phase_combine_build()
         phase_kernel(torch, attention)
         phase_kernel_bwd(torch, attention)
         n = FLAGSHIP["num_vertices"]
@@ -1622,6 +1753,7 @@ def main() -> int:
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
+    emit("profiler", **PROFILES)
     csrc = "topo_audio_autoencoder_torch/csrc/"
     print(json.dumps({"kernels": [
         kernel_entry("masked_attention_fwd", csrc + "masked_attention_fwd.cu",

@@ -384,7 +384,11 @@ def test_hard_concrete_kernel_gradients(cuda):
 # carrier and y, ten on the way to a gradient), the kernel only its outputs
 # and three product operands: 2^-5 of the largest element bounds both.
 COMBINE_RTOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -5, 2 ** -5)}
-COMBINE_ROWS = [(1, 37), (3, 1000)]  # 37 and 3,000 rows: neither a multiple of the 64-row tile
+# 37 and 3,000 rows: neither a multiple of the 64-row tile; 32, 33, 96 and
+# 4,097 rows: the edges of the kernels' 32-row units and half tiles; 18,240
+# and 77,520 rows: the flagship's two fused ranks, on the card's full grid.
+COMBINE_ROWS = [(1, 37), (3, 1000), (32,), (33,), (96,), (4097,), (16, 1140), (77520,)]
+COMBINE_ROW_IDS = ["37rows", "3000rows", "32rows", "33rows", "96rows", "4097rows", "18240rows", "77520rows"]
 
 
 def _combine_inputs(cuda, dtype, m, lead, seed=0):
@@ -407,7 +411,7 @@ def _assert_rel(got, want, rtol, name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("m", [1, 2, 3])
-@pytest.mark.parametrize("lead", COMBINE_ROWS, ids=["37rows", "3000rows"])
+@pytest.mark.parametrize("lead", COMBINE_ROWS, ids=COMBINE_ROW_IDS)
 def test_combine_kernels_match_plain(cuda, dtype, m, lead):
     from topo_audio_autoencoder_torch.ops import sccn_combine as sc
 
@@ -425,6 +429,42 @@ def test_combine_kernels_match_plain(cuda, dtype, m, lead):
         _assert_rel(g, w, bwd_tol, f"dcar{i}")
     for name, g, w in zip(("dx", "dv", "dw1", "db1", "dw2"), rest, want_rest):
         _assert_rel(g, w, bwd_tol, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("lead", [(4097,), (16, 1140)], ids=["4097rows", "18240rows"])
+def test_combine_kernels_are_deterministic(cuda, dtype, m, lead):
+    """Rows 6 and 7 twice on the same inputs: the same bits (no atomics; the
+    second pass sums the blocks' partials in block order)."""
+    from topo_audio_autoencoder_torch.ops import sccn_combine as sc
+
+    car, x, v, w1, b1, w2, dy = _combine_inputs(cuda, dtype, m, lead, seed=5)
+    first = (sc.combine_fwd(car, x, v, w1, b1, w2), sc.combine_bwd(car, x, v, w1, b1, w2, dy))
+    second = (sc.combine_fwd(car, x, v, w1, b1, w2), sc.combine_bwd(car, x, v, w1, b1, w2, dy))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    (dcar, *rest), (again_dcar, *again_rest) = first[1], second[1]
+    for a, b in zip((*dcar, *rest), (*again_dcar, *again_rest)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m, rows", [(1, 4097), (3, 18240), (2, 77520)], ids=["m1", "m3", "m2"])
+def test_combine_bwd_weight_grads_match_the_blocked_plain_sum(cuda, m, rows):
+    """The backward kernel's dV, dW1, db1 and dw2 against the same split of
+    the rows among its own number of blocks, each range in fp32 and the
+    ranges summed in block order (combine_bwd_blocked_plain). Products in
+    another order keep this at COMBINE_RTOL: it checks the split, and
+    test_combine_kernels_are_deterministic the fixed order."""
+    from topo_audio_autoencoder_torch.ops import sccn_combine as sc
+
+    car, x, v, w1, b1, w2, dy = _combine_inputs(cuda, torch.float32, m, (rows,), seed=6)
+    blocks = sc.kernel_blocks(rows, m, torch.float32, backward=True)
+    assert 1 <= blocks <= -(-rows // sc.ROW_UNIT)
+    _, _, *got = sc.combine_bwd(car, x, v, w1, b1, w2, dy)
+    _, _, *want = sc.combine_bwd_blocked_plain(car, x, v, w1, b1, w2, dy, blocks)
+    for name, g, w in zip(("dv", "dw1", "db1", "dw2"), got, want):
+        _assert_rel(g, w, COMBINE_RTOL[torch.float32][1], name)
 
 
 def test_fused_combine_autograd_goes_through_both_kernels(cuda):

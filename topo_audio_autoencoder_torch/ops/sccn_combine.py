@@ -41,6 +41,8 @@ KERNEL_CHANNELS = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' variants (csrc/sccn_combine.cu's Mode).
 FULL, PACKED, NOGELU, MATMUL, COPY = range(5)
+# The kernels split the rows among their blocks in units of this many rows.
+ROW_UNIT = 32
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -80,6 +82,37 @@ def combine_bwd_plain(carriers, x, v, w1, b1, w2, dy):
     return (tuple(grads[:m]), *grads[m:])
 
 
+def combine_row_ranges(rows: int, blocks: int) -> list:
+    """The [start, end) rows that each of ``blocks`` blocks of the CUDA
+    kernels owns, in block order, with the kernels' integer arithmetic: the
+    ``ceil(rows / ROW_UNIT)`` units of 32 rows split into contiguous ranges
+    whose sizes differ by at most one unit (empty where blocks outnumber
+    units); the last range ends at ``rows``."""
+    units = -(-rows // ROW_UNIT)
+    edges = [min(b * units // blocks * ROW_UNIT, rows) for b in range(blocks + 1)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def combine_bwd_blocked_plain(carriers, x, v, w1, b1, w2, dy, blocks: int) -> tuple:
+    """``combine_bwd_plain`` with the backward kernel's cross-block sum: dV,
+    dW1, db1 and dw2 computed in fp32 over each of ``combine_row_ranges``'
+    ranges and summed in block order (the kernel's second pass), then cast
+    to the input type; dcarriers and dx per row, as ``combine_bwd_plain``."""
+    c = x.shape[-1]
+    dcar, dx, *_ = combine_bwd_plain(carriers, x, v, w1, b1, w2, dy)
+    rows = [t.reshape(-1, c).float() for t in (*carriers, x, dy)]
+    weights = [t.float() for t in (v, w1, b1, w2)]
+    m = len(carriers)
+    total = None
+    for start, end in combine_row_ranges(rows[0].shape[0], blocks):
+        if start == end:
+            continue
+        part = [t[start:end] for t in rows]
+        _, _, *grads = combine_bwd_plain(tuple(part[:m]), part[m], *weights, part[m + 1])
+        total = grads if total is None else [a + g for a, g in zip(total, grads)]
+    return (dcar, dx, *(t.to(x.dtype) for t in total))
+
+
 def _check(carriers, x, v, w1, b1, w2, what: str) -> None:
     m = len(carriers)
     if not 1 <= m <= 3:
@@ -100,6 +133,13 @@ def _check(carriers, x, v, w1, b1, w2, what: str) -> None:
     device = x.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda tensors, not {device}")
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on 16 bytes, as the kernels' vector
+    loads need (a copy only where a view starts elsewhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_cuda(tensors, what: str) -> None:
@@ -124,6 +164,7 @@ def _kernels():
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     signatures = {
         "sccn_combine_fwd": [ptr] * 3 + [i64] + [ptr] * 6 + [i64, i32, i32, i32, ptr],
+        "sccn_combine_fwd_blocks": [i64, i32, i32, i32],
         "sccn_combine_bwd_blocks": [i64, i32, i32, i32],
         "sccn_combine_bwd": [ptr] * 3 + [i64] + [ptr] * 9 + [i64, ptr, ptr, i32, ptr, i64, i32, i32, i32, ptr],
     }
@@ -134,6 +175,17 @@ def _kernels():
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def kernel_blocks(rows: int, m: int, dtype, mode: int = FULL, backward: bool = False) -> int:
+    """How many blocks the forward (or backward) kernel launches for
+    ``rows`` rows of M messages in ``dtype``: as many as fit on the card at
+    once, at most one per 32-row unit. Builds the kernels on first use."""
+    name = "sccn_combine_bwd_blocks" if backward else "sccn_combine_fwd_blocks"
+    blocks = _kernels()[name](rows, m, _DTYPE_CODES[dtype], mode)
+    if blocks <= 0:
+        raise RuntimeError(f"{name} (mode {mode}, M={m}, rows={rows}) refused: CUDA error {-blocks}")
+    return blocks
 
 
 def _ptr(t):
@@ -173,21 +225,17 @@ def launch_backward(mode: int, car_ptrs, car_stride: int, x, v, w1, b1, w2, dy, 
     views of one buffer."""
     m, c = len(car_ptrs), x.shape[-1]
     rows = x.numel() // c
-    code = _DTYPE_CODES[x.dtype]
-    fns = _kernels()
-    blocks = fns["sccn_combine_bwd_blocks"](rows, m, code, mode)
-    if blocks <= 0:
-        raise RuntimeError(f"sccn_combine_bwd (mode {mode}) refused: CUDA error {-blocks}")
+    blocks = kernel_blocks(rows, m, x.dtype, mode, backward=True)
     elems = m * c * c + c * c + 2 * c
     partials = torch.empty((blocks, elems), dtype=torch.float32, device=x.device)
     wgrad = torch.empty(elems, dtype=x.dtype, device=x.device)
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fns["sccn_combine_bwd"](
+        err = _kernels()["sccn_combine_bwd"](
             *_padded(car_ptrs), car_stride, x.data_ptr(), v.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), dy.data_ptr(), *_padded(dcar_ptrs), dcar_stride, dx.data_ptr(),
-            partials.data_ptr(), blocks, wgrad.data_ptr(), rows, m, code, mode, stream,
+            partials.data_ptr(), blocks, wgrad.data_ptr(), rows, m, _DTYPE_CODES[x.dtype], mode, stream,
         )
     if err != 0:
         raise RuntimeError(f"sccn_combine_bwd (mode {mode}) launch failed: CUDA error {err}")
@@ -203,8 +251,8 @@ def combine_fwd(carriers, x, v, w1, b1, w2):
     _check(carriers, x, v, w1, b1, w2, "combine_fwd")
     if x.device.type == "cpu":
         return message_combine_reference(carriers, x, v, w1, b1, w2)
-    cars = [t.contiguous() for t in carriers]
-    x, v, w1, b1, w2 = (t.contiguous() for t in (x, v, w1, b1, w2))
+    cars = [_operand(t) for t in carriers]
+    x, v, w1, b1, w2 = (_operand(t) for t in (x, v, w1, b1, w2))
     check_cuda([x, *cars, v, w1, b1, w2], "combine_fwd")
     y = launch_forward(FULL, [t.data_ptr() for t in cars], x.shape[-1], x, v, w1, b1, w2)
     combine_fwd.launches += 1
@@ -226,9 +274,9 @@ def combine_bwd(carriers, x, v, w1, b1, w2, dy):
         raise ValueError(f"combine_bwd: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     if x.device.type == "cpu":
         return combine_bwd_plain(carriers, x, v, w1, b1, w2, dy)
-    cars = [t.contiguous() for t in carriers]
-    x, v, w1, b1, w2 = (t.contiguous() for t in (x, v, w1, b1, w2))
-    dy = dy.to(x.dtype).contiguous()
+    cars = [_operand(t) for t in carriers]
+    x, v, w1, b1, w2 = (_operand(t) for t in (x, v, w1, b1, w2))
+    dy = _operand(dy.to(x.dtype))
     check_cuda([x, *cars, v, w1, b1, w2, dy], "combine_bwd")
     dcar = tuple(torch.empty_like(x) for _ in cars)
     c = x.shape[-1]
