@@ -27,7 +27,15 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             sampler at the train step's logits (and its generator's
             statistics over 4M draws), the fixed- and learned-stretch Hard
             Concrete samplers at their train steps' log-alpha (and the
-            gates' clip statistics).
+            gates' clip statistics), each with its kernel's device ms
+            (torch.profiler) and its uniforms bit-equal to the Philox
+            stream also at ragged lengths; then the three samplers'
+            backward kernels (train and eval, fp32 and bf16) against their
+            plain versions, two calls bit for bit.
+   sampler_launch  the launch floor (an empty launch by events and by the
+            profiler) and each sampler's backward at its train shape as the
+            step runs it (its autograd Function): events, launches, device
+            ms.
    kernel_combine  the fused SCCN combine's forward and backward kernels
             against the plain version and its autograd at the train step's
             two fused ranks (rank 3: M=2, 77,520 rows; rank 2: M=3, 18,240
@@ -52,7 +60,8 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 6. train    the flagship train step (fp32, B=16 anchors x G=3 clips of
             64,000 samples, two-group Adam, clipping): one warm-up and 10
             timed steps, launch counters zeroed just before and read just
-            after; then 3 bf16 steps.
+            after (the sampler's forward and backward kernels once a step);
+            then 3 bf16 steps, counted the same way.
    kernel   the attention forward and backward on the inputs (and the
             output gradient) captured from one more train step.
    trace    one train step under torch.profiler.
@@ -81,7 +90,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             recorded no device activity at first and were taken again.
 14. kernels  one line per kernel: route, source, launches (its train
             step; combine_diag's ladder for rows 8-10), error, times (at its
-            train step's shape; the ladder's for rows 8-10).
+            train step's shape; the ladder's for rows 8-10). The samplers'
+            backward kernels stand in the line under the JAX VJPs they
+            replace (_bg_bwd, _hc_bwd, _hcl_bwd).
 
 Then the nvidia-smi line and, last, {"ok": true, "device": ...}. Any failed
 check exits non-zero before the last line. Without a card it exits 2.
@@ -152,6 +163,23 @@ TOL_BWD = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # rounding; bf16 output one ulp below 1 (2^-8).
 TOL_SAMPLER = {"float32": 2e-6, "bfloat16": 2.0 ** -8}
 SAMPLER_DRAWS = 1 << 22
+# Ragged lengths for the samplers' uniforms: word j of Philox group g must
+# reach element 4g + j where the length is not a multiple of four.
+RAGGED_SHAPES = ((4097,), (3, 37))
+# The samplers' backward kernels against their plain versions (the same
+# operations in the same order; the plain version on the card divides by a
+# Python scalar as a product with its reciprocal): da within this fraction
+# of its largest element (bf16: one ulp). A stretch row's column sum adds R
+# rows in P slices, then the P partials, in the same order on both sides:
+# within (R + P + SUM_TERM_ULPS) 2^-24 of the sum of |term| (each addition
+# rounds within 2^-24 of the running sum; the terms differ by a few ulps).
+TOL_SAMPLER_BWD = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+SUM_TERM_ULPS = 8
+# Operations per element of the backward kernels at the fp32 rate outside
+# the tensor cores: Gumbel 2 s (1 - s) / T times ct; fixed the recovery of
+# s, the mask and four products; learned that, a log, a log1p, three
+# divides and the three column terms.
+SAMPLER_BWD_OPS = {"binary_gumbel_bwd": 6.0, "hard_concrete_bwd": 12.0, "hard_concrete_learned_bwd": 60.0}
 # Train parity, card vs CPU plain path, B=2, G=3, full width. The loss and
 # its components: fp32 on both, cuDNN/cuBLAS/cuFFT against oneDNN/pocketfft
 # sums. The gradient as a whole: relative L2 over every leaf; the spectral
@@ -235,6 +263,8 @@ TOL_DIAG_PARITY = (1e-5, 1e-4)
 TRAIN_FUSED_STEPS = 5
 FUSED_RANK_LAYERS = 12
 DECODE_FUSED_TOL = 1e-4
+# The Hard Concrete kernels, forward and backward (rows 4 and 5).
+HC_KERNELS = ("hard_concrete", "hard_concrete_bwd", "hard_concrete_learned", "hard_concrete_learned_bwd")
 COMBINE_KERNELS = ("sccn_combine_fwd", "sccn_combine_bwd", "sccn_combine_packed_fwd",
                    "sccn_combine_packed_bwd", "sccn_combine_copy", "sccn_combine_matmul",
                    "sccn_combine_nogelu")
@@ -305,17 +335,26 @@ def attention_bound(q, mask, h: int, dtype_name: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# kernel_ms's profiles in this run: how many, and which had to be taken twice.
-PROFILES = {"profiles": 0, "retried": []}
+# The profiles of this run: how many, which had to be taken again (no
+# device activity at all), and which lost some of their device events.
+PROFILES = {"profiles": 0, "retried": [], "lost_events": []}
+# Host seconds of sleep that widen each profile's window on both sides. In
+# H100 runs a profile's device timestamps sat up to ~5 ms off its launches'
+# host timestamps, and the profiler drops the device events that then fall
+# outside its window: a profile of a few microsecond kernels lost one or
+# all of them (PERF.md).
+PROFILE_PAD_S = 0.02
 
 
-def kernel_ms(torch, fn, kernels, what: str, reps: int = 20) -> dict:
-    """Device ms per call of each named kernel that ``fn`` launches, from
-    torch.profiler over ``reps`` calls (a kernel's name matches where it is
-    a substring of the profiler's key). A profile that recorded no device
-    activity at all (its CUDA tracing did not start: seen once in an H100
-    run, cause unknown) is taken once more and recorded in PROFILES, which
-    the run prints; a named kernel without device time fails the check."""
+def device_events(torch, fn, what: str, reps: int = 20) -> list:
+    """The device events (torch.profiler's key averages) of ``reps`` calls
+    of ``fn``, after one call outside the profile, in a window widened by
+    PROFILE_PAD_S on each side. A profile that recorded no device activity
+    at all is taken once more and recorded in PROFILES, which the run
+    prints; a second empty profile fails the check. A profile that lost
+    some events (a kernel counted a number of times that is not a whole
+    multiple of ``reps``) is recorded there too; ``per_call_ms`` then
+    averages over the launches it kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,21 +363,45 @@ def kernel_ms(torch, fn, kernels, what: str, reps: int = 20) -> dict:
     PROFILES["profiles"] += 1
     for attempt in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if any(e.self_device_time_total > 0 for e in device):
-            break
+            counts = {e.key[:60]: e.count for e in device}
+            if any(c % reps for c in counts.values()):
+                PROFILES["lost_events"].append({"what": what, "reps": reps, "counts": counts})
+            return device
         if attempt == 0:
             PROFILES["retried"].append(what)
         print(f"chip_smoke: {what}: the profile recorded no device activity (attempt {attempt + 1})",
               file=sys.stderr, flush=True)
+    check(False, f"{what}: two profiles recorded no device activity")
+
+
+def launches_per_call(e, reps: int) -> int:
+    """How many times one call launches the kernel of key-average ``e``."""
+    return max(1, round(e.count / reps))
+
+
+def per_call_ms(e, reps: int) -> float:
+    """Device ms per call of the kernel of key-average ``e``: its mean over
+    the launches the profile kept, times its launches per call."""
+    return e.self_device_time_total / 1e3 / e.count * launches_per_call(e, reps)
+
+
+def kernel_ms(torch, fn, kernels, what: str, reps: int = 20) -> dict:
+    """Device ms per call of each named kernel that ``fn`` launches, from
+    torch.profiler over ``reps`` calls (``device_events``; a kernel's name
+    matches where it is a substring of the profiler's key). A named kernel
+    without device time fails the check."""
     ms = dict.fromkeys(kernels, 0.0)
-    for e in device:
+    for e in device_events(torch, fn, what, reps):
         for kernel in ms:
             if kernel in e.key:
-                ms[kernel] += e.self_device_time_total / 1e3 / reps
+                ms[kernel] += per_call_ms(e, reps)
     check(all(t > 0 for t in ms.values()), f"{what}: profiler shows no device time per kernel {ms}")
     return ms
 
@@ -591,12 +654,20 @@ def phase_kernel_sampler(torch, fused, n_simplices: int) -> dict:
             uu = fused.philox_uniform(logits.numel(), SEED, 7, dev).reshape(shape)
             return fused.binary_gumbel_plain(logits, uu, TEMPERATURE)
 
+        def sample():
+            return fused.binary_gumbel_sample(logits, TEMPERATURE, seed=SEED, offset=7)
+
         bound_ms, bound_by = sampler_bound(logits.numel(), logits.element_size())
         results.append(dict(
-            dtype=name, max_abs_err=err, tol=TOL_SAMPLER[name],
-            ms=time_ms(lambda: fused.binary_gumbel_sample(logits, TEMPERATURE, seed=SEED, offset=7)),
+            dtype=name, max_abs_err=err, tol=TOL_SAMPLER[name], ms=time_ms(sample),
+            device_ms=kernel_ms(torch, sample, ("philox_kernel",), f"binary_gumbel {name}")["philox_kernel"],
             plain_ms=time_ms(plain), library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
         ))
+    for shape in RAGGED_SHAPES:
+        x = torch.linspace(-3.0, 3.0, math.prod(shape), device=dev).reshape(shape)
+        _, u = fused.binary_gumbel_sample(x, TEMPERATURE, seed=SEED, offset=5, return_noise=True)
+        check(torch.equal(u, fused.philox_uniform(x.numel(), SEED, 5, dev).reshape(shape)),
+              f"sampler {shape}: kernel uniforms differ from the Philox stream at a ragged length")
     _, u = fused.binary_gumbel_sample(torch.zeros(SAMPLER_DRAWS, device=dev), 1.0, seed=SEED + 3,
                                       return_noise=True)
     n = u.numel()
@@ -608,6 +679,7 @@ def phase_kernel_sampler(torch, fused, n_simplices: int) -> dict:
     check(abs(below - 0.5) <= frac_tol, f"sampler uniforms: fraction below 0.5 {below}")
     check(u.min().item() >= np.float32(1e-6) and u.max().item() <= np.float32(1 - 1e-6), "uniforms out of range")
     emit("kernel", kernel="binary_gumbel", inputs="synthetic", shape=list(shape), results=results,
+         ragged_uniforms_equal=[list(r) for r in RAGGED_SHAPES],
          uniforms=dict(draws=n, mean=mean, mean_tol=mean_tol, frac_below_half=below, frac_tol=frac_tol))
     return results[0]
 
@@ -823,18 +895,20 @@ def phase_train(torch, port, counters) -> tuple:
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steps = len(batches)
     per_step = {name: n / steps for name, n in launches.items()}
-    check(launches["binary_gumbel"] == steps, f"sampler launches {launches} for {steps} steps")
+    check(launches["binary_gumbel"] == steps and launches["binary_gumbel_bwd"] == steps,
+          f"sampler launches {launches} for {steps} steps")
     check(launches["masked_attention_fwd"] == steps, f"attention fwd launches {launches} for {steps} steps")
     check(launches["masked_attention_bwd"] >= steps, f"attention bwd launches {launches} for {steps} steps")
-    check(launches["hard_concrete"] == 0 and launches["hard_concrete_learned"] == 0,
-          f"the Gumbel step launched a Hard Concrete kernel: {launches}")
+    check(all(launches[k] == 0 for k in HC_KERNELS), f"the Gumbel step launched a Hard Concrete kernel: {launches}")
     check(all(launches[k] == 0 for k in COMBINE_KERNELS), f"the unfused step launched a combine kernel: {launches}")
     step_ms = statistics.median(times[1:])
 
     bf16_opt = port.make_optimizer(accumulate_grad_batches=1)
     bf16_step = port.make_train_step(model, bf16_opt, compute_dtype=torch.bfloat16)
-    _, bf16_times, bf16_components, _ = timed_steps(
+    _, bf16_times, bf16_components, bf16_launches = timed_steps(
         torch, bf16_step, port.create_train_state(model, bf16_opt), batches[:BF16_STEPS], counters)
+    check(bf16_launches["binary_gumbel"] == BF16_STEPS and bf16_launches["binary_gumbel_bwd"] == BF16_STEPS
+          and all(bf16_launches[k] == 0 for k in HC_KERNELS), f"bf16 step sampler launches {bf16_launches}")
     check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in model.parameters()),
           "master parameters not finite fp32 after the bf16 steps")
     emit(
@@ -844,7 +918,7 @@ def phase_train(torch, port, counters) -> tuple:
         clips_per_s=TRAIN_B * TRAIN_G / (step_ms / 1e3), components=components,
         launches=launches, launches_per_step=per_step, peak_mem_gib=peak_gib,
         num_params=model.num_params(),
-        bf16=dict(step_ms=bf16_times, components=bf16_components),
+        bf16=dict(step_ms=bf16_times, components=bf16_components, launches=bf16_launches),
     )
     return model, state, step, batches[0], launches
 
@@ -1010,13 +1084,26 @@ def phase_kernel_hc(torch, hc, fused, n_simplices: int) -> dict:
             def plain_full(a=a, plain=plain):
                 return plain(fused.philox_uniform(a.numel(), SEED, 11, dev).reshape(a.shape))
 
+            def timed(sample=sample):
+                return sample(seed=SEED, offset=11)
+
             bound_ms, bound_by = hc_bound(a.numel(), a.element_size(), row_bytes)
             results.append(dict(
                 dtype=name, max_abs_err=err, tol=TOL_SAMPLER[name], frac_zero=zeros, frac_one=ones,
-                ms=time_ms(lambda sample=sample: sample(seed=SEED, offset=11)), plain_ms=time_ms(plain_full),
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                ms=time_ms(timed), device_ms=kernel_ms(torch, timed, ("philox_kernel",), f"{kernel} {name}")["philox_kernel"],
+                plain_ms=time_ms(plain_full), library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
             ))
-        emit("kernel", kernel=kernel, inputs="synthetic", shape=list(shape), results=results)
+        for ragged in RAGGED_SHAPES:
+            x = torch.linspace(-3.0, 3.0, math.prod(ragged), device=dev).reshape(ragged)
+            if kernel == "hard_concrete":
+                _, u = hc.hard_concrete_sample(x, HC_BETA, seed=SEED, offset=5, return_noise=True)
+            else:
+                ragged_rows = stretch_rows(torch, ragged[-1], rng)
+                _, u = hc.hard_concrete_learned_sample(x, *ragged_rows, seed=SEED, offset=5, return_noise=True)
+            check(torch.equal(u, fused.philox_uniform(x.numel(), SEED, 5, dev).reshape(ragged)),
+                  f"{kernel} {ragged}: kernel uniforms differ from the Philox stream at a ragged length")
+        emit("kernel", kernel=kernel, inputs="synthetic", shape=list(shape), results=results,
+             ragged_uniforms_equal=[list(r) for r in RAGGED_SHAPES])
         out[kernel] = results[0]
     z = hc.hard_concrete_sample(torch.zeros(HC_DRAWS, device=dev), HC_BETA, seed=SEED + 3)
     p = 1.0 / (1.0 + math.exp(-HC_BETA * math.log(1.0 / 11.0)))
@@ -1030,6 +1117,148 @@ def phase_kernel_hc(torch, hc, fused, n_simplices: int) -> dict:
     emit("kernel", kernel="hard_concrete", inputs="gate statistics", draws=HC_DRAWS, beta=HC_BETA,
          frac_zero=zeros, frac_one=ones, expected=p, tol=tol, frac_nonzero=nonzero, l0_term=l0)
     return out
+
+
+def sampler_bwd_bound(kernel: str, n: int, elt: int, ct_elt: int, cols: int = 0) -> tuple[float, str]:
+    """Least time for one backward pass over n elements: read the residual
+    and the cotangent and write the gradient once (the learned kernel also
+    reads its three fp32 rows and writes three fp32 column sums), and
+    SAMPLER_BWD_OPS[kernel] operations per element at the fp32 rate."""
+    t_bytes = (n * (2 * elt + ct_elt) + 6 * cols * 4) / HBM_BPS
+    t_ops = SAMPLER_BWD_OPS[kernel] * n / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def col_sum_excess(torch, hc, got, want, terms) -> float:
+    """How far a column sum exceeds its stated bound (<= 0: within it)."""
+    rows = terms.numel() // terms.shape[-1]
+    bound = (rows + len(hc.row_slices(rows)) + SUM_TERM_ULPS) * 2.0 ** -24 * hc.column_sums(terms.abs())
+    return ((got.float() - want.float()).abs() - bound).max().item()
+
+
+def phase_kernel_sampler_bwd(torch, fused, hc, n_simplices: int) -> dict:
+    """The samplers' backward kernels at their train steps' shapes (Gumbel
+    [16, 6195], fixed [32, 6195], learned [16, 6195]), fp32 and bf16,
+    train and eval for the Hard Concrete ones, on the sampler kernels' own
+    outputs and a normal cotangent: each against its plain version
+    (TOL_SAMPLER_BWD; the learned column sums within their bound), one
+    launch a call, two calls bit for bit, with event ms, device ms
+    (profiler), the plain version's ms and the bound. No single PyTorch call
+    computes these functions: no library time."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 9)
+    rows = stretch_rows(torch, n_simplices, rng)
+    out = {}
+    for kernel, b, modes in (("binary_gumbel_bwd", TRAIN_B, (True,)), ("hard_concrete_bwd", HC_B, (True, False)),
+                             ("hard_concrete_learned_bwd", TRAIN_B, (True, False))):
+        results = []
+        for training in modes:
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).removeprefix("torch.")
+                a = torch.from_numpy(rng.normal(0.5, 2.0, (b, n_simplices)).astype(np.float32)).to(dev, dtype)
+                ct = torch.from_numpy(rng.standard_normal((b, n_simplices)).astype(np.float32)).to(dev, dtype)
+                if kernel == "binary_gumbel_bwd":
+                    x = fused.binary_gumbel_sample(a, TEMPERATURE, seed=SEED)
+
+                    def run(x=x, ct=ct):
+                        return (fused.binary_gumbel_bwd(x, ct, TEMPERATURE),)
+
+                    def plain(x=x, ct=ct):
+                        return (fused.binary_gumbel_bwd_plain(x, ct, TEMPERATURE),)
+                elif kernel == "hard_concrete_bwd":
+                    x = hc.hard_concrete_sample(a, HC_BETA, seed=SEED)
+
+                    def run(x=x, ct=ct, training=training):
+                        return (hc.hard_concrete_bwd(x, ct, HC_BETA, training),)
+
+                    def plain(x=x, ct=ct, training=training):
+                        return (hc.hard_concrete_bwd_plain(x, ct, HC_BETA, training),)
+                else:
+                    x = hc.hard_concrete_learned_sample(a, *rows, seed=SEED)
+
+                    def run(x=x, ct=ct, training=training):
+                        return hc.hard_concrete_learned_bwd(x, ct, *rows, training)
+
+                    def plain(x=x, ct=ct, training=training):
+                        return hc.hard_concrete_learned_bwd_plain(x, ct, *rows, training)
+                wrapper = getattr(fused if kernel == "binary_gumbel_bwd" else hc, kernel)
+                before = wrapper.launches
+                got = run()
+                torch.cuda.synchronize()
+                check(wrapper.launches == before + 1, f"{kernel} {name}: {wrapper.launches - before} launches a call")
+                want = plain()
+                check(got[0].dtype == dtype and got[0].shape == x.shape, f"{kernel} {name}: shape/dtype")
+                scale = want[0].float().abs().max().item()
+                err = (got[0].float() - want[0].float()).abs().max().item()
+                check(err <= TOL_SAMPLER_BWD[name] * scale,
+                      f"{kernel} {name} training={training}: max abs err {err} > {TOL_SAMPLER_BWD[name]} x {scale}")
+                sums = {}
+                if kernel == "hard_concrete_learned_bwd":
+                    _, tb, tg, tz = hc.hard_concrete_learned_terms(x, ct, *rows, training)
+                    if training:
+                        sums["dbeta"] = col_sum_excess(torch, hc, got[1], want[1], tb)
+                    else:
+                        check(bool((got[1] == 0).all()), f"{kernel} {name}: dbeta is not 0 in eval")
+                    sums["dgamma"] = col_sum_excess(torch, hc, got[2], want[2], tg)
+                    sums["dzeta"] = col_sum_excess(torch, hc, got[3], want[3], tz)
+                    check(all(e <= 0 for e in sums.values()), f"{kernel} {name}: a column sum over its bound {sums}")
+                check(all(torch.equal(g, h) for g, h in zip(got, run())), f"{kernel} {name}: two calls differ")
+                bound_ms, bound_by = sampler_bwd_bound(kernel, x.numel(), x.element_size(), ct.element_size(),
+                                                       n_simplices if kernel == "hard_concrete_learned_bwd" else 0)
+                results.append(dict(
+                    dtype=name, training=training, max_abs_err=err, largest=scale, tol=TOL_SAMPLER_BWD[name],
+                    col_sum_excess=sums, ms=time_ms(run),
+                    device_ms=kernel_ms(torch, run, ("bwd_kernel",), f"{kernel} {name}")["bwd_kernel"],
+                    plain_ms=time_ms(plain), library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                ))
+        emit("kernel", kernel=kernel, inputs="synthetic", shape=[b, n_simplices], results=results)
+        out[kernel] = results[0]
+    return out
+
+
+def phase_sampler_launch(torch, fused, hc, n_simplices: int) -> dict:
+    """The launch floor, and each sampler's backward as the train step runs
+    it, at its train step's shape, fp32 and bf16: the backward of its
+    autograd Function (``torch.autograd.grad`` on a fixed cotangent) by
+    events, its launches per call and their summed device ms (profiler).
+    The floor is ``time_ms`` of ``torch.cuda._sleep(0)``, one empty launch,
+    and its device ms: a yardstick the port never calls. The forward
+    kernels' times are in the kernel phases' lines."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 8)
+    reps = 20
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    floor_device_ms = sum(per_call_ms(e, reps)
+                          for e in device_events(torch, lambda: torch.cuda._sleep(0), "launch floor", reps))
+    rows = stretch_rows(torch, n_simplices, rng)
+    results = []
+    for sampler, b in (("binary_gumbel", TRAIN_B), ("hard_concrete", HC_B), ("hard_concrete_learned", TRAIN_B)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            x = torch.from_numpy(rng.normal(0.5, 2.0, (b, n_simplices)).astype(np.float32)).to(dev, dtype)
+            gen = torch.Generator().manual_seed(SEED)
+            leaves = [x.detach().clone().requires_grad_(True)]
+            if sampler == "binary_gumbel":
+                out = fused.binary_gumbel_fused_diff(leaves[0], gen, TEMPERATURE)
+            elif sampler == "hard_concrete":
+                out = hc.hard_concrete_fused_diff(leaves[0], gen, HC_BETA)
+            else:
+                leaves += [r.to(dtype).requires_grad_(True) for r in rows]
+                out = hc.hard_concrete_fused_learned_diff(leaves[0], gen, *leaves[1:])
+            ct = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).to(dev, dtype)
+
+            def bwd(out=out, leaves=leaves, ct=ct):
+                return torch.autograd.grad(out, leaves, ct, retain_graph=True)
+
+            events = device_events(torch, bwd, f"{sampler} {name} backward", reps)
+            results.append(dict(
+                sampler=sampler, dtype=name, shape=[b, n_simplices], bwd_ms=time_ms(bwd),
+                bwd_launches=sum(launches_per_call(e, reps) for e in events),
+                bwd_device_ms=sum(per_call_ms(e, reps) for e in events),
+                bwd_kernels=sorted({e.key[:60] for e in events}),
+            ))
+    emit("sampler_launch", floor_ms=floor_ms, floor_device_ms=floor_device_ms, results=results)
+    return {(r["sampler"], r["dtype"]): r for r in results}
 
 
 def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, expect) -> tuple:
@@ -1050,7 +1279,7 @@ def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, 
     n = len(batches)
     for name in ("masked_attention_fwd", "masked_attention_bwd", *expect):
         check(launches[name] == n, f"{phase}: {name} launched {launches[name]} times in {n} steps")
-    for name in ("binary_gumbel", "hard_concrete", "hard_concrete_learned", *COMBINE_KERNELS):
+    for name in ("binary_gumbel", "binary_gumbel_bwd", *HC_KERNELS, *COMBINE_KERNELS):
         if name not in expect:
             check(launches[name] == 0, f"{phase}: {name} launched {launches[name]} times")
     params = dict(model.named_parameters())
@@ -1573,9 +1802,9 @@ def phase_train_fused(torch, port, training, counters) -> dict:
     n = len(batches)
     for name in ("sccn_combine_fwd", "sccn_combine_bwd"):
         check(launches[name] == FUSED_RANK_LAYERS * n, f"train_fused: {name} launched {launches[name]} in {n} steps")
-    for name in ("binary_gumbel", "masked_attention_fwd", "masked_attention_bwd"):
+    for name in ("binary_gumbel", "binary_gumbel_bwd", "masked_attention_fwd", "masked_attention_bwd"):
         check(launches[name] == n, f"train_fused: {name} launched {launches[name]} in {n} steps")
-    for name in ("hard_concrete", "hard_concrete_learned", *COMBINE_KERNELS[2:]):
+    for name in (*HC_KERNELS, *COMBINE_KERNELS[2:]):
         check(launches[name] == 0, f"train_fused: {name} launched {launches[name]} times")
     step_ms = statistics.median(times[1:])
     emit(
@@ -1702,8 +1931,11 @@ def main() -> int:
         "masked_attention_fwd": attention.attention_fwd,
         "masked_attention_bwd": attention.attention_bwd,
         "binary_gumbel": fused.binary_gumbel_sample,
+        "binary_gumbel_bwd": fused.binary_gumbel_bwd,
         "hard_concrete": hc.hard_concrete_sample,
+        "hard_concrete_bwd": hc.hard_concrete_bwd,
         "hard_concrete_learned": hc.hard_concrete_learned_sample,
+        "hard_concrete_learned_bwd": hc.hard_concrete_learned_bwd,
         "sccn_combine_fwd": sc.combine_fwd,
         "sccn_combine_bwd": sc.combine_bwd,
         "sccn_combine_packed_fwd": cd.packed_combine_fwd,
@@ -1720,6 +1952,8 @@ def main() -> int:
         n_simplices = sum(math.comb(n, k) for k in range(1, 5))
         sampler = phase_kernel_sampler(torch, fused, n_simplices)
         hc_kernels = phase_kernel_hc(torch, hc, fused, n_simplices)
+        sampler_bwd = phase_kernel_sampler_bwd(torch, fused, hc, n_simplices)
+        phase_sampler_launch(torch, fused, hc, n_simplices)
         combine = phase_kernel_combine(torch, sc)
         diag, diag_launches = phase_combine_diag(torch, sc, cd, counters)
         torch.cuda.empty_cache()
@@ -1736,13 +1970,13 @@ def main() -> int:
         phase_train_parity(torch, port, training)
         hmodel, hstate, hstep, hbatch, hc_launches = phase_train_hc(
             torch, port, counters, "train_hc", HC_MODEL, HC_B, HC_G, HC_STEPS, training.LossWeights(),
-            ("hard_concrete",))
+            ("hard_concrete", "hard_concrete_bwd"))
         phase_train_trace(torch, hstate, hstep, hbatch, what="one Hard Concrete hard train step (fp32, B=32, G=1)")
         del hmodel, hstate, hstep
         torch.cuda.empty_cache()
         _, _, _, _, learned_launches = phase_train_hc(
             torch, port, counters, "train_hc_learned", HC_LEARNED_MODEL, TRAIN_B, TRAIN_G, HC_LEARNED_STEPS,
-            training.LossWeights(l0_penalty=HC_L0_PENALTY), ("hard_concrete_learned",))
+            training.LossWeights(l0_penalty=HC_L0_PENALTY), ("hard_concrete_learned", "hard_concrete_learned_bwd"))
         torch.cuda.empty_cache()
         phase_encode_hc(torch, port, counters)
         phase_train_parity(torch, port, training, "train_parity_hc", HC_MODEL, group=HC_G)
@@ -1771,6 +2005,15 @@ def main() -> int:
         kernel_entry("hard_concrete_learned", csrc + "hard_concrete.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:127",
                      learned_launches["hard_concrete_learned"], hc_kernels["hard_concrete_learned"]),
+        kernel_entry("binary_gumbel_bwd", csrc + "binary_gumbel.cu",
+                     "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:286",
+                     launches["binary_gumbel_bwd"], sampler_bwd["binary_gumbel_bwd"]),
+        kernel_entry("hard_concrete_bwd", csrc + "hard_concrete.cu",
+                     "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:317",
+                     hc_launches["hard_concrete_bwd"], sampler_bwd["hard_concrete_bwd"]),
+        kernel_entry("hard_concrete_learned_bwd", csrc + "hard_concrete.cu",
+                     "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:367",
+                     learned_launches["hard_concrete_learned_bwd"], sampler_bwd["hard_concrete_learned_bwd"]),
         kernel_entry("sccn_combine_fwd", csrc + "sccn_combine.cu", "topo_audio_autoencoder_tpu/ops/sccn_combine.py:90",
                      fused_launches["sccn_combine_fwd"], combine["fwd"]),
         kernel_entry("sccn_combine_bwd", csrc + "sccn_combine.cu", "topo_audio_autoencoder_tpu/ops/sccn_combine.py:128",

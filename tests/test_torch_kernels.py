@@ -260,10 +260,12 @@ def test_binary_gumbel_kernel_uniforms_are_uniform(cuda):
 def test_binary_gumbel_kernel_gradient(cuda):
     logits = torch.linspace(-2.0, 2.0, 6195, device=cuda).repeat(16, 1).requires_grad_(True)
     gen = torch.Generator().manual_seed(5)
-    before = fused_samplers.binary_gumbel_sample.launches
+    before = fused_samplers.binary_gumbel_sample.launches, fused_samplers.binary_gumbel_bwd.launches
     s = fused_samplers.binary_gumbel_fused_diff(logits, gen, 0.7)
     (s ** 2).sum().backward()
-    assert fused_samplers.binary_gumbel_sample.launches == before + 1
+    # One forward and one backward kernel, each launched once.
+    assert (fused_samplers.binary_gumbel_sample.launches, fused_samplers.binary_gumbel_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     sd = s.detach()
     torch.testing.assert_close(logits.grad, 2 * sd * 2 * sd * (1 - sd) / 0.7)
 
@@ -359,21 +361,177 @@ def test_hard_concrete_kernel_gradients(cuda):
 
     a = torch.linspace(-3.0, 3.0, 6195, device=cuda).repeat(16, 1).requires_grad_(True)
     gen = torch.Generator().manual_seed(5)
-    before = hc.hard_concrete_sample.launches
+    before = hc.hard_concrete_sample.launches, hc.hard_concrete_bwd.launches
     z = hc.hard_concrete_fused_diff(a, gen, 0.7)
     z.sum().backward()
-    assert hc.hard_concrete_sample.launches == before + 1
+    assert (hc.hard_concrete_sample.launches, hc.hard_concrete_bwd.launches) == (before[0] + 1, before[1] + 1)
     zd = z.detach()
     s = ((zd + 0.1) / 1.2).clamp(1e-6, 1 - 1e-6)
     want = ((zd > 0) & (zd < 1)).float() * s * (1 - s) * 1.2 / 0.7
     torch.testing.assert_close(a.grad, want, rtol=1e-5, atol=1e-7)
     rows = [r.requires_grad_(True) for r in _hc_rows(cuda, 6195)]
     a.grad = None
-    before = hc.hard_concrete_learned_sample.launches
+    before = hc.hard_concrete_learned_sample.launches, hc.hard_concrete_learned_bwd.launches
     hc.hard_concrete_fused_learned_diff(a, gen, *rows).sum().backward()
-    assert hc.hard_concrete_learned_sample.launches == before + 1
+    assert (hc.hard_concrete_learned_sample.launches, hc.hard_concrete_learned_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
     assert all(r.grad is not None and r.grad.shape == (6195,) and torch.isfinite(r.grad).all() for r in rows)
     assert torch.isfinite(a.grad).all()
+
+
+@pytest.mark.parametrize("sampler", ["gumbel", "fixed", "learned"])
+@pytest.mark.parametrize("shape", [(1,), (3,), (5, 37), (4097,), (16, 6195)],
+                         ids=["1", "3", "5x37", "4097", "16x6195"])
+def test_sampler_kernel_uniforms_at_ragged_lengths(cuda, sampler, shape):
+    """Word j of Philox group g goes to element 4g + j, also where the
+    length is not a multiple of four. The Gumbel kernel's thread t owns
+    element t and word t & 3 of group t / 4; the Hard Concrete kernels'
+    thread t owns elements 2t and 2t + 1, words (2t & 3) and (2t & 3) + 1
+    of group 2t / 4, with an odd tail masked."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    x = torch.linspace(-3.0, 3.0, int(np.prod(shape)), device=cuda).reshape(shape)
+    if sampler == "gumbel":
+        _, u = fused_samplers.binary_gumbel_sample(x, 0.7, seed=41, offset=6, return_noise=True)
+    elif sampler == "fixed":
+        _, u = hc.hard_concrete_sample(x, 0.7, seed=41, offset=6, return_noise=True)
+    else:
+        _, u = hc.hard_concrete_learned_sample(x, *_hc_rows(cuda, shape[-1]), seed=41, offset=6, return_noise=True)
+    assert torch.equal(u, fused_samplers.philox_uniform(x.numel(), 41, 6, cuda).reshape(shape))
+
+
+# The backward kernels against their plain versions (the same operations in
+# the same order; on the card the plain version divides by a Python scalar
+# as a product with its reciprocal): da within 1e-6 of its largest element
+# in fp32, one ulp (2^-7 of the largest element) in bf16. A column sum adds
+# R rows in P slices and then the P partials, in the same order on both
+# sides; each addition rounds within 2^-24 of the running sum and the terms
+# differ by a few ulps at most, so the sums agree within
+# (R + P + SUM_TERM_ULPS) 2^-24 of the sum of |term|, plus one bf16 ulp of
+# the result where the row is bf16.
+BWD_TOL = {torch.float32: 1e-6, torch.bfloat16: 2 ** -7}
+SUM_TERM_ULPS = 8
+
+
+def _assert_col_sum(got, want, terms, what):
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    rows = terms.numel() // terms.shape[-1]
+    bound = (rows + len(hc.row_slices(rows)) + SUM_TERM_ULPS) * 2.0 ** -24 * hc.column_sums(terms.abs())
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * want.float().abs()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bound).all()), f"{what}: {(err - bound).max().item()} over the bound"
+
+
+def _bwd_case(cuda, sampler, dtype, shape, seed=7):
+    """(residual, cotangent) at ``shape``: the sampler's own output on the
+    card and a normal cotangent, both in ``dtype``."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(0.5, 2.0, shape).astype(np.float32)).to(cuda, dtype)
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, dtype)
+    if sampler == "gumbel":
+        return fused_samplers.binary_gumbel_sample(a, 0.7, seed=3), ct
+    if sampler == "fixed":
+        return hc.hard_concrete_sample(a, 2.0 / 3.0, seed=3), ct
+    return hc.hard_concrete_learned_sample(a, *_hc_rows(cuda, shape[-1]), seed=3), ct
+
+
+# (sampler, shape, training): the train steps' shapes, a 3-D leading shape
+# and a ragged one for the learned rows' column sums. The Gumbel sampler's
+# eval is a threshold with no gradient.
+BWD_CASES = [("gumbel", TRAIN_LOGITS, True), ("fixed", HC_LOGITS, True), ("fixed", HC_LOGITS, False),
+             ("learned", TRAIN_LOGITS, True), ("learned", TRAIN_LOGITS, False),
+             ("learned", (2, 8, 6195), True), ("learned", (2, 8, 6195), False), ("learned", (3, 37), True)]
+BWD_CASE_IDS = ["gumbel", "fixed", "fixed-eval", "learned", "learned-eval", "learned3d", "learned3d-eval",
+                "learned3x37"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sampler,shape,training", BWD_CASES, ids=BWD_CASE_IDS)
+def test_sampler_backward_kernels_match_plain(cuda, sampler, shape, training, dtype):
+    """Each backward kernel against its plain version on the same residual
+    and cotangent, launched once a call, two calls bit for bit."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    x, ct = _bwd_case(cuda, sampler, dtype, shape)
+    if sampler == "gumbel":
+        wrapper = fused_samplers.binary_gumbel_bwd
+        run = lambda: (wrapper(x, ct, 0.7),)  # noqa: E731
+        want = (fused_samplers.binary_gumbel_bwd_plain(x, ct, 0.7),)
+    elif sampler == "fixed":
+        wrapper = hc.hard_concrete_bwd
+        run = lambda: (wrapper(x, ct, 2.0 / 3.0, training),)  # noqa: E731
+        want = (hc.hard_concrete_bwd_plain(x, ct, 2.0 / 3.0, training),)
+    else:
+        rows = _hc_rows(cuda, shape[-1])
+        wrapper = hc.hard_concrete_learned_bwd
+        run = lambda: wrapper(x, ct, *rows, training)  # noqa: E731
+        want = hc.hard_concrete_learned_bwd_plain(x, ct, *rows, training)
+    before = wrapper.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got[0].dtype == dtype and got[0].shape == x.shape
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    assert err <= BWD_TOL[dtype] * want[0].float().abs().max().item(), err
+    if sampler == "learned":
+        _, tb, tg, tz = hc.hard_concrete_learned_terms(x, ct, *rows, training)
+        if training:
+            _assert_col_sum(got[1], want[1], tb, "dbeta")
+        else:
+            assert bool((got[1] == 0).all())
+        _assert_col_sum(got[2], want[2], tg, "dgamma")
+        _assert_col_sum(got[3], want[3], tz, "dzeta")
+        assert all(g.shape == (shape[-1],) and g.dtype == torch.float32 for g in got[1:])
+    again = run()
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("sampler", ["gumbel", "fixed", "learned"])
+def test_sampler_backward_kernels_take_a_cotangent_of_the_other_dtype(cuda, sampler):
+    """A bf16 residual with an fp32 cotangent (and the reverse) gives the
+    plain version's result in the residual's dtype; bf16 stretch rows give
+    bf16 cotangents."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    for dtype, ct_dtype in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        x, ct = _bwd_case(cuda, sampler, dtype, (4, 6195))
+        ct = ct.to(ct_dtype)
+        if sampler == "gumbel":
+            got, want = fused_samplers.binary_gumbel_bwd(x, ct, 0.7), fused_samplers.binary_gumbel_bwd_plain(x, ct, 0.7)
+        elif sampler == "fixed":
+            got, want = hc.hard_concrete_bwd(x, ct, 0.7, True), hc.hard_concrete_bwd_plain(x, ct, 0.7, True)
+        else:
+            rows = [r.to(dtype) for r in _hc_rows(cuda, 6195)]
+            grads = hc.hard_concrete_learned_bwd(x, ct, *rows, True)
+            assert all(g.dtype == dtype for g in grads)
+            got, want = grads[0], hc.hard_concrete_learned_bwd_plain(x, ct, *rows, True)[0]
+        assert got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * want.float().abs().max().item(), (dtype, err)
+
+
+def test_hard_concrete_eval_backward_launches_the_kernel(cuda):
+    """In eval the forward is the plain noiseless gate, but the backward of
+    a CUDA tensor still runs the kernel: no / T and no / beta, dbeta 0."""
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    a = torch.linspace(-3.0, 3.0, 6195, device=cuda).repeat(4, 1).requires_grad_(True)
+    before = hc.hard_concrete_sample.launches, hc.hard_concrete_bwd.launches
+    z = hc.hard_concrete_fused_diff(a, None, 0.7, training=False)
+    z.sum().backward()
+    assert (hc.hard_concrete_sample.launches, hc.hard_concrete_bwd.launches) == (before[0], before[1] + 1)
+    want = hc.hard_concrete_bwd_plain(z.detach(), torch.ones_like(z), 0.7, False)
+    assert (a.grad - want).abs().max().item() <= BWD_TOL[torch.float32] * want.abs().max().item()
+    rows = [r.requires_grad_(True) for r in _hc_rows(cuda, 6195)]
+    before = hc.hard_concrete_learned_sample.launches, hc.hard_concrete_learned_bwd.launches
+    hc.hard_concrete_fused_learned_diff(a, None, *rows, training=False).sum().backward()
+    assert (hc.hard_concrete_learned_sample.launches, hc.hard_concrete_learned_bwd.launches) == (
+        before[0], before[1] + 1)
+    assert bool((rows[0].grad == 0).all()) and bool(rows[1].grad.abs().sum() > 0)
 
 
 # The fused SCCN combine (rows 6-10 of the kernel table). Inputs scaled as

@@ -1,5 +1,5 @@
-// Philox4x32-10 and the conversions shared by the sampler kernels
-// (binary_gumbel.cu, hard_concrete.cu).
+// Philox4x32-10, the conversions and the element access shared by the
+// sampler kernels (binary_gumbel.cu, hard_concrete.cu).
 //
 // The generator is Philox4x32-10 (Salmon et al., SC'11), keyed by the
 // 64-bit seed; the 128-bit counter is (group index, 64-bit offset). Group g
@@ -58,6 +58,53 @@ __device__ __forceinline__ uint4 philox_block(int64_t g, uint32_t seed_lo, uint3
                                               uint32_t off_lo, uint32_t off_hi) {
   return philox4x32_10(
       make_uint4((uint32_t)g, (uint32_t)((uint64_t)g >> 32), off_lo, off_hi), seed_lo, seed_hi);
+}
+
+// Word k (0-3) of a Philox block. Selects, not an indexed array, so the
+// block stays in registers.
+__device__ __forceinline__ uint32_t word(const uint4& r, int k) {
+  return k == 0 ? r.x : k == 1 ? r.y : k == 2 ? r.z : r.w;
+}
+
+// E consecutive elements of T as one access of E * sizeof(T) bytes.
+template <typename T, int E>
+struct alignas(E * sizeof(T)) Pack {
+  T v[E];
+};
+
+// Elements base .. base+E-1 of p (those below n) as fp32, in one access
+// where `whole` (all E below n, p aligned to the access).
+template <int E, typename T>
+__device__ __forceinline__ void load(const T* p, int64_t base, int64_t n, bool whole, float v[E]) {
+  if (whole) {
+    const Pack<T, E> x = *reinterpret_cast<const Pack<T, E>*>(p + base);
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[j] = to_float(x.v[j]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) v[j] = base + j < n ? to_float(p[base + j]) : 0.0f;
+}
+
+// Writes v[0 .. E-1] to elements base .. base+E-1 of p (those below n), as load.
+template <int E, typename T>
+__device__ __forceinline__ void store(T* p, int64_t base, int64_t n, bool whole, const float v[E]) {
+  if (whole) {
+    Pack<T, E> x;
+#pragma unroll
+    for (int j = 0; j < E; ++j) x.v[j] = from_float<T>(v[j]);
+    *reinterpret_cast<Pack<T, E>*>(p + base) = x;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j)
+    if (base + j < n) p[base + j] = from_float<T>(v[j]);
+}
+
+// Whether p (or no pointer) may be accessed E elements of T at a time.
+template <int E, typename T>
+inline bool aligned(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % (E * sizeof(T)) == 0;
 }
 
 __device__ __forceinline__ float bits_to_uniform(uint32_t bits) {

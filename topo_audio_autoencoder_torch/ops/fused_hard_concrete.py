@@ -12,8 +12,12 @@ side can instead take the uniforms as a tensor (``noise=``).
 ``hard_concrete_sample`` and ``hard_concrete_learned_sample`` take the
 plain version for CPU tensors and launch a kernel for CUDA tensors (each
 counts its launches in ``launches``); they never fall back from one to the
-other. The gradients are closed-form in the output ``z`` and run in plain
-torch, as the JAX package computes its custom VJPs outside any kernel.
+other. The gradients are closed-form in the output ``z`` (the JAX
+package's ``_hc_bwd`` and ``_hcl_bwd``): ``hard_concrete_bwd`` and
+``hard_concrete_learned_bwd`` dispatch the same way, to the backward
+kernel in the same source (one template over the stretch, like the
+forward's), whose column sums over the batch run in a fixed order
+(``column_sums``).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from functools import lru_cache
 
 import torch
 
-from .fused_samplers import _DTYPE_CODES, _check_inputs, _run, _seed
+from .fused_samplers import _DTYPE_CODES, _check_inputs, _run, _seed, check_cotangent, launch_checked
 from .samplers import HardConcreteParams, hard_concrete
 
 GAMMA = HardConcreteParams.gamma
@@ -63,6 +67,8 @@ def _kernels():
         "hard_concrete_noise": [ptr] * 3 + [i64, f32, f32, f32, i32, ptr],
         "hard_concrete_learned_philox": [ptr] * 6 + [i64, i64, u64, u64, i32, ptr],
         "hard_concrete_learned_noise": [ptr] * 6 + [i64, i64, i32, ptr],
+        "hard_concrete_bwd": [ptr] * 3 + [i64, f32, f32, f32, i32, i32, i32, ptr],
+        "hard_concrete_learned_bwd": [ptr] * 9 + [i64, i64, i32, i32, i32, ptr],
     }
     fns = {}
     for name, argtypes in signatures.items():
@@ -169,10 +175,135 @@ def _recovered_s(z, gamma, zeta):
     return s, ((z > 0.0) & (z < 1.0)).to(z.dtype)
 
 
+# The most row slices the backward kernel splits a column's rows into.
+MAX_SLICES = 16
+
+
+def row_slices(rows: int) -> list:
+    """The backward kernel's row slices of a column, in its merge order:
+    P (the largest power of two <= min(MAX_SLICES, rows)) contiguous ranges
+    of ceil(rows / P) rows, the last ones short or empty."""
+    p = 1
+    while p < MAX_SLICES and 2 * p <= rows:
+        p *= 2
+    chunk = -(-rows // p)
+    return [(min(k * chunk, rows), min((k + 1) * chunk, rows)) for k in range(p)]
+
+
+def column_sums(t: torch.Tensor) -> torch.Tensor:
+    """Sums of ``t`` over every axis but the last, in the backward kernel's
+    order: each row slice adds its rows in order from zero, then the
+    partials are added in slice order from zero. fp32 in, [cols] out."""
+    rows = t.reshape(-1, t.shape[-1])
+    total = torch.zeros_like(rows[0])
+    for r0, r1 in row_slices(rows.shape[0]):
+        part = torch.zeros_like(rows[0])
+        for r in range(r0, r1):
+            part = part + rows[r]
+        total = total + part
+    return total
+
+
+def hard_concrete_bwd_plain(z: torch.Tensor, ct: torch.Tensor, temperature: float, training: bool) -> torch.Tensor:
+    """The fixed-stretch backward kernel's function in plain torch:
+    ``da = ct * (1{0<z<1} s (1 - s) (zeta - gamma) / T)`` (eval: no ``/ T``),
+    fp32 inside, in ``z``'s dtype."""
+    scale = (ZETA - GAMMA) / temperature if training else ZETA - GAMMA
+    s, inside = _recovered_s(z.to(torch.float32), GAMMA, ZETA)
+    dz = inside * s * (1.0 - s) * scale
+    return (ct.to(torch.float32) * dz).to(z.dtype)
+
+
+def hard_concrete_learned_terms(z, ct, beta, gamma, zeta, training: bool) -> tuple:
+    """The learned-stretch backward per element, fp32: with ``s`` recovered
+    from ``z`` and ``sp = 1{0<z<1} s (1 - s)``::
+
+        da = ct sp (zeta - gamma) / beta        (eval: no / beta)
+        tb = ct sp (zeta - gamma) (-logit s) / beta   (eval: None)
+        tg = ct 1{0<z<1} (1 - s),   tz = ct 1{0<z<1} s
+
+    ``tb``, ``tg`` and ``tz`` summed over every axis but the last are the
+    stretch rows' cotangents."""
+    f32 = torch.float32
+    zf, bf, gf, zetaf, ctf = (t.to(f32) for t in (z, beta, gamma, zeta, ct))
+    span = zetaf - gf
+    s, inside = _recovered_s(zf, gf, zetaf)
+    sp = inside * s * (1.0 - s)
+    if training:
+        logit_s = torch.log(s) - torch.log1p(-s)
+        da = ctf * sp * span / bf
+        tb = ctf * sp * span * (-logit_s) / bf
+    else:
+        da, tb = ctf * sp * span, None
+    return da, tb, ctf * inside * (1.0 - s), ctf * inside * s
+
+
+def hard_concrete_learned_bwd_plain(z, ct, beta, gamma, zeta, training: bool) -> tuple:
+    """The learned-stretch backward kernel's function in plain torch:
+    ``hard_concrete_learned_terms`` with the stretch terms summed by
+    ``column_sums`` (the kernel's order; dbeta is 0 in eval). Returns (da,
+    dbeta, dgamma, dzeta) in the dtypes of ``z`` and the three rows."""
+    da, tb, tg, tz = hard_concrete_learned_terms(z, ct, beta, gamma, zeta, training)
+    dbeta = column_sums(tb) if training else torch.zeros(beta.shape, dtype=torch.float32, device=z.device)
+    return (da.to(z.dtype), dbeta.to(beta.dtype), column_sums(tg).to(gamma.dtype),
+            column_sums(tz).to(zeta.dtype))
+
+
+def hard_concrete_bwd(z: torch.Tensor, ct: torch.Tensor, temperature: float, training: bool) -> torch.Tensor:
+    """The fixed-stretch gate's gradient to log-alpha from the gate ``z``,
+    in ``z``'s dtype. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (counted in ``launches``); any other device raises."""
+    temperature = float(temperature)
+    if not temperature > 0.0:
+        raise ValueError(f"temperature must be positive, not {temperature}")
+    ct = check_cotangent(z, ct, "hard_concrete_bwd")
+    if z.device.type == "cpu":
+        return hard_concrete_bwd_plain(z, ct, temperature, training)
+    scale = (ZETA - GAMMA) / temperature if training else ZETA - GAMMA
+    da = torch.empty_like(z)
+    launch_checked(lambda stream: _kernels()["hard_concrete_bwd"](
+        z.data_ptr(), ct.data_ptr(), da.data_ptr(), z.numel(), GAMMA, ZETA, scale, int(training),
+        _DTYPE_CODES[z.dtype], _DTYPE_CODES[ct.dtype], stream), z.device, "hard_concrete_bwd")
+    hard_concrete_bwd.launches += 1
+    return da
+
+
+hard_concrete_bwd.launches = 0
+
+
+def hard_concrete_learned_bwd(z, ct, beta, gamma, zeta, training: bool) -> tuple:
+    """The learned-stretch gate's gradients from the gate ``z``: (da,
+    dbeta, dgamma, dzeta), the stretch rows' summed over every axis of
+    ``z`` but the last, each in its leaf's dtype. The rows are read as
+    fp32 (rounded to the compute dtype first, as in the forward). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (counted
+    in ``launches``); any other device raises."""
+    cols = z.shape[-1]
+    for name, row in (("beta", beta), ("gamma", gamma), ("zeta", zeta)):
+        if tuple(row.shape) != (cols,):
+            raise ValueError(f"{name} {tuple(row.shape)} must be a row of z's last axis ({cols},)")
+    ct = check_cotangent(z, ct, "hard_concrete_learned_bwd")
+    if z.device.type == "cpu":
+        return hard_concrete_learned_bwd_plain(z, ct, beta, gamma, zeta, training)
+    rows = [r.detach().to(device=z.device, dtype=torch.float32).contiguous() for r in (beta, gamma, zeta)]
+    da = torch.empty_like(z)
+    sums = [torch.empty(cols, dtype=torch.float32, device=z.device) for _ in range(3)]
+    launch_checked(lambda stream: _kernels()["hard_concrete_learned_bwd"](
+        z.data_ptr(), ct.data_ptr(), *(r.data_ptr() for r in rows), da.data_ptr(), *(t.data_ptr() for t in sums),
+        z.numel(), cols, int(training), _DTYPE_CODES[z.dtype], _DTYPE_CODES[ct.dtype], stream),
+        z.device, "hard_concrete_learned_bwd")
+    hard_concrete_learned_bwd.launches += 1
+    return (da, *(t.to(r.dtype) for t, r in zip(sums, (beta, gamma, zeta))))
+
+
+hard_concrete_learned_bwd.launches = 0
+
+
 class HardConcrete(torch.autograd.Function):
     """Fixed stretch: the fused sample (train) or the noiseless gate (eval);
     backward ``dz/da = 1{0<z<1} s (1 - s) (zeta - gamma) / T`` (eval: no
-    ``/ T``). The temperature takes no gradient."""
+    ``/ T``) in one pass (``hard_concrete_bwd``). The temperature takes no
+    gradient."""
 
     @staticmethod
     def forward(ctx, log_alpha, temperature, training, seed, noise):
@@ -181,21 +312,20 @@ class HardConcrete(torch.autograd.Function):
         else:
             z = hard_concrete(log_alpha, None, temperature, training=False)
         ctx.save_for_backward(z)
-        ctx.scale = (ZETA - GAMMA) / temperature if training else ZETA - GAMMA
+        ctx.temperature, ctx.training = float(temperature), training
         return z
 
     @staticmethod
     def backward(ctx, ct):
         (z,) = ctx.saved_tensors
-        s, inside = _recovered_s(z.to(torch.float32), GAMMA, ZETA)
-        dz = inside * s * (1.0 - s) * ctx.scale
-        return (ct.to(torch.float32) * dz).to(z.dtype), None, None, None, None
+        return hard_concrete_bwd(z, ct, ctx.temperature, ctx.training), None, None, None, None
 
 
 class HardConcreteLearned(torch.autograd.Function):
     """Learned stretch: the fused sample (train) or the noiseless gate
-    (eval). With ``s = sigmoid(a / beta)`` and ``z = clip(s (zeta - gamma)
-    + gamma, 0, 1)``, on unclipped gates::
+    (eval); backward in one pass (``hard_concrete_learned_bwd``): on
+    unclipped gates, with ``s = sigmoid(a / beta)`` and ``z = clip(s (zeta -
+    gamma) + gamma, 0, 1)``::
 
         dz/da = s (1 - s) (zeta - gamma) / beta     (eval: no / beta)
         dz/dbeta = -s (1 - s) (zeta - gamma) logit(s) / beta   (eval: 0)
@@ -216,23 +346,7 @@ class HardConcreteLearned(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         z, beta, gamma, zeta = ctx.saved_tensors
-        f32 = torch.float32
-        zf, bf, gf, zetaf, ctf = (t.to(f32) for t in (z, beta, gamma, zeta, ct))
-        span = zetaf - gf
-        s, inside = _recovered_s(zf, gf, zetaf)
-        sp = inside * s * (1.0 - s)
-        batch = tuple(range(ct.ndim - 1))
-        if ctx.training:
-            logit_s = torch.log(s) - torch.log1p(-s)
-            da = ctf * sp * span / bf
-            dbeta = (ctf * sp * span * (-logit_s) / bf).sum(batch)
-        else:
-            da = ctf * sp * span
-            dbeta = torch.zeros_like(bf)
-        dgamma = (ctf * inside * (1.0 - s)).sum(batch)
-        dzeta = (ctf * inside * s).sum(batch)
-        return (da.to(z.dtype), dbeta.to(beta.dtype), dgamma.to(gamma.dtype), dzeta.to(zeta.dtype),
-                None, None, None)
+        return (*hard_concrete_learned_bwd(z, ct, beta, gamma, zeta, ctx.training), None, None, None)
 
 
 def hard_concrete_fused_diff(

@@ -11,7 +11,9 @@ tests hand both packages the same numbers.
 
 ``binary_gumbel_sample`` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (``launches`` counts those launches);
-it never falls back from one to the other.
+it never falls back from one to the other. The closed-form backward
+(``binary_gumbel_bwd``, the JAX package's ``_bg_bwd``) does the same with
+its own kernel in the same source.
 """
 
 from __future__ import annotations
@@ -86,7 +88,11 @@ def _kernels():
     noise.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int,
                                               ctypes.c_void_p]
     noise.restype = ctypes.c_int
-    return philox, noise
+    bwd = lib.binary_gumbel_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    return philox, noise, bwd
 
 
 def _check_inputs(x: torch.Tensor, seed: int, offset: int, noise: torch.Tensor | None, what: str):
@@ -109,6 +115,15 @@ def _check_inputs(x: torch.Tensor, seed: int, offset: int, noise: torch.Tensor |
     return noise
 
 
+def launch_checked(launch, device: torch.device, what: str) -> None:
+    """Runs ``launch(stream) -> CUDA error code`` on ``device``'s current
+    stream and raises if the launch failed."""
+    with torch.cuda.device(device):
+        err = launch(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
 def _run(x, seed, offset, noise, return_noise, plain, launch, what):
     """One sampler pass over ``x``: ``plain(u)`` for a CPU tensor, on the
     uniforms ``noise`` or the Philox stream of (seed, offset); for a CUDA
@@ -123,10 +138,7 @@ def _run(x, seed, offset, noise, return_noise, plain, launch, what):
     if return_noise and noise is None:
         u_out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = launch(out, noise, u_out, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    launch_checked(lambda stream: launch(out, noise, u_out, stream), x.device, what)
     if return_noise:
         return out, (noise if noise is not None else u_out)
     return out
@@ -153,7 +165,7 @@ def binary_gumbel_sample(
     noise = _check_inputs(logits, seed, offset, noise, "binary_gumbel_sample")
 
     def launch(out, noise, u_out, stream):
-        philox, from_noise = _kernels()
+        philox, from_noise, _ = _kernels()
         code = _DTYPE_CODES[logits.dtype]
         if noise is not None:
             err = from_noise(logits.data_ptr(), noise.data_ptr(), out.data_ptr(),
@@ -170,6 +182,54 @@ def binary_gumbel_sample(
 
 
 binary_gumbel_sample.launches = 0
+
+
+def binary_gumbel_bwd_plain(s: torch.Tensor, ct: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The backward kernel's function in plain torch: ``dl = ct * 2 s (1 -
+    s) / T``, fp32 inside, in ``s``'s dtype."""
+    sf = s.to(torch.float32)
+    ds = 2.0 * sf * (1.0 - sf) / float(temperature)
+    return (ct.to(torch.float32) * ds).to(s.dtype)
+
+
+def check_cotangent(x: torch.Tensor, ct: torch.Tensor, what: str) -> torch.Tensor:
+    """Validates a sampler backward's residual ``x`` and cotangent ``ct``
+    for the device of ``x``; returns ``ct`` contiguous for a CUDA kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
+    if ct.shape != x.shape or ct.device != x.device:
+        raise ValueError(f"{what}: the cotangent {tuple(ct.shape)} on {ct.device} must match "
+                         f"{tuple(x.shape)} on {x.device}")
+    if x.device.type == "cuda":
+        if x.dtype not in _DTYPE_CODES or ct.dtype not in _DTYPE_CODES:
+            raise TypeError(f"the {what} kernel takes float32 or bfloat16, not {x.dtype} and {ct.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"the {what} kernel takes a contiguous residual")
+        ct = ct.contiguous()
+    return ct
+
+
+def binary_gumbel_bwd(s: torch.Tensor, ct: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The relaxation's gradient to the logits from its output ``s``:
+    ``ct * 2 s (1 - s) / T`` in ``s``'s dtype (the cotangent in either
+    dtype). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (counted in ``launches``); any other device raises."""
+    temperature = float(temperature)
+    if not temperature > 0.0:
+        raise ValueError(f"temperature must be positive, not {temperature}")
+    ct = check_cotangent(s, ct, "binary_gumbel_bwd")
+    if s.device.type == "cpu":
+        return binary_gumbel_bwd_plain(s, ct, temperature)
+    _, _, bwd = _kernels()
+    dl = torch.empty_like(s)
+    launch_checked(lambda stream: bwd(s.data_ptr(), ct.data_ptr(), dl.data_ptr(), s.numel(), temperature,
+                                      _DTYPE_CODES[s.dtype], _DTYPE_CODES[ct.dtype], stream),
+                   s.device, "binary_gumbel_bwd")
+    binary_gumbel_bwd.launches += 1
+    return dl
+
+
+binary_gumbel_bwd.launches = 0
 
 
 def seed_from(generator: torch.Generator) -> int:
@@ -205,9 +265,9 @@ def binary_gumbel_fused(
 
 
 class BinaryGumbel(torch.autograd.Function):
-    """Fused forward; backward in closed form from the output alone:
-    ds/dl = 2 s (1 - s) / T (plain torch: elementwise, as the JAX package
-    leaves it to XLA). The temperature takes no gradient."""
+    """Fused forward; backward in closed form from the output alone,
+    ds/dl = 2 s (1 - s) / T, in one pass (``binary_gumbel_bwd``). The
+    temperature takes no gradient."""
 
     @staticmethod
     def forward(ctx, logits, temperature, seed, noise):
@@ -219,9 +279,7 @@ class BinaryGumbel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (s,) = ctx.saved_tensors
-        sf = s.to(torch.float32)
-        ds = 2.0 * sf * (1.0 - sf) / ctx.temperature
-        return (ct.to(torch.float32) * ds).to(s.dtype), None, None, None
+        return binary_gumbel_bwd(s, ct, ctx.temperature), None, None, None
 
 
 def binary_gumbel_fused_diff(
