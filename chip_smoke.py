@@ -39,7 +39,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
    kernel_combine  the fused SCCN combine's forward and backward kernels
             against the plain version and its autograd at the train step's
             two fused ranks (rank 3: M=2, 77,520 rows; rank 2: M=3, 18,240
-            rows) and a ragged M=1 case, fp32 and bf16, with times and bounds,
+            rows), a ragged M=1 case and the n=32 packed step's three fused
+            ranks (M=3, 7,936 and 8,192 rows; M=2, 4,096), fp32 and bf16,
+            with times and bounds,
             two calls bit for bit, each kernel's device ms (torch.profiler),
             and each kernel's blocks and longest row range.
    combine_diag  benchmarks/kernel_diag.py's ladder on the card: the packed
@@ -86,9 +88,32 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             (train_parity's bounds), and one 8-clip decode's waveform fused
             against unfused on one shared latent. Every earlier phase
             launches the combine kernels (rows 6-10) zero times.
-13. profiler  how many kernel profiles the run took, and which of them
+13. train_packed  the n=32 packed model (ranks 2-3 packed to 512 and
+            256 rows; 1,264 attention keys), fp32, B=16 x G=3: a warm-up and
+            5 timed steps, rows 1, 2, 3 and 3's backward once a step; rows 1
+            and 2 on the step's attention inputs; one profiled step. The
+            packed path builds no dense membership of a packed rank.
+14. train_packed_fused  the same with fused_combine on every layer (rows 6
+            and 7 at ranks 1-3: 18 launches each a step), then one step
+            fused against unfused on a fresh model, cuDNN deterministic:
+            the loss and the surrogate as train_fused, the step's own
+            cotangent pulled back through both (2e-4 a leaf, 2e-2 as a
+            whole), the whole gradient at 2e-2 where it is conditioned; and
+            the unfused step's repeatability, cuDNN deterministic and not.
+15. train_parity_packed  train_parity for the packed model, with uniforms
+            whose packed sets cannot change between card and CPU.
+16. serve_packed  the packed codec: 3 timed requests of 8 clips, 5,181 wire
+            bytes a clip, the latent bit for bit through the wire, row 1
+            once a decode, the waveform against the CPU's.
+17. baseline2  BASELINE config 2 (max_rank=1, batch 8, eval forward plus
+            autoencoder_loss, 20 timed calls; 190 attention keys) against
+            the CPU.
+18. train_parity_jk, train_jk  the flagship step with the jumping-knowledge
+            SCCN: one step card vs CPU (B=2), then 3 timed steps of B=16 x
+            G=3.
+19. profiler  how many kernel profiles the run took, and which of them
             recorded no device activity at first and were taken again.
-14. kernels  one line per kernel: route, source, launches (its train
+20. kernels  one line per kernel: route, source, launches (its train
             step; combine_diag's ladder for rows 8-10), error, times (at its
             train step's shape; the ladder's for rows 8-10). The samplers'
             backward kernels stand in the line under the JAX VJPs they
@@ -226,15 +251,20 @@ ENCODE_CALLS = 20
 # Card vs CPU parity of a Hard Concrete or hard step: every pre-clip gate
 # and every Bernoulli draw must clear this margin (logits differ by ~4e-6
 # card vs CPU, and a pre-clip gate moves by at most 0.3x its logit), else
-# the next seed is tried, up to HC_SEED_TRIES.
+# the next seed is tried, up to HC_SEED_TRIES. A packed soft step keeps the
+# rows of highest rectified probability: the K-th and (K+1)-th select keys
+# of every packed rank must clear it too, else a row could change sides.
 HC_MARGIN = 1e-5
 HC_SEED_TRIES = 20
 
 # The fused SCCN combine (rows 6-10). The train step decodes B=16 anchors:
 # rank 3 has 16 x 4,845 = 77,520 rows and M=2 messages, rank 2 16 x 1,140 =
 # 18,240 rows and M=3; ranks 0 and 1 stay below MIN_FUSED_ROWS. A ragged
-# M=1 case (4,097 rows: one row past 64 full tiles) covers the rest.
-COMBINE_SHAPES = ((2, TRAIN_B * 4845), (3, TRAIN_B * 1140), (1, 4097))
+# M=1 case (4,097 rows: one row past 64 full tiles) covers the rest. The
+# n=32 packed step's fused ranks: rank 1 16 x 496 rows, rank 2 16 x 512
+# (M=3 each), rank 3 16 x 256 (M=2).
+COMBINE_SHAPES = ((2, TRAIN_B * 4845), (3, TRAIN_B * 1140), (1, 4097),
+                  (3, TRAIN_B * 496), (3, TRAIN_B * 512), (2, TRAIN_B * 256))
 COMBINE_C = 64
 # Kernel vs plain, relative to each output's largest element. fp32: the same
 # operations in other summation orders (y 1e-5; every gradient, a sum over up
@@ -263,6 +293,33 @@ TOL_DIAG_PARITY = (1e-5, 1e-4)
 TRAIN_FUSED_STEPS = 5
 FUSED_RANK_LAYERS = 12
 DECODE_FUSED_TOL = 1e-4
+# The n=32 packed model, the repo's best trained geometry
+# (benchmarks/capacity_n32_c64_packed/checkpoints/best.extra.json): 32
+# vertices, 16 bands, C=64, 6 layers, Gumbel, soft, max_active_vertices 32,
+# ranks 2-3 packed to 512 and 256 rows. 32 + 496 + 4,960 + 35,960 = 41,448
+# simplices (5,181 wire bytes a clip); the decoder attends over 496 + 512 +
+# 256 = 1,264 keys. At B=16 ranks 1-3 have 7,936, 8,192 and 4,096 rows, each
+# at least MIN_FUSED_ROWS: with fused_combine, 3 ranks x 6 layers = 18
+# launches of rows 6 and 7 a step. The dense ranks' memberships (v2e) are
+# the only ones built: e2t and t2tt, 10 and 713 MB in fp32, never.
+PACKED = dict(num_vertices=32, num_bands=16, sccn_hidden_dim=64, n_sccn_layers=6)
+PACKED_OPTIONS = dict(max_active_vertices=32, pack_capacities=(0, 0, 512, 256))
+PACKED_STEPS = 5
+PACKED_KEYS = 496 + 512 + 256
+PACKED_WIRE_BYTES = 5181
+PACKED_FUSED_RANK_LAYERS = 18
+# BASELINE config 2 (benchmarks/run_all.py:125-150, BASELINE.md:43): the
+# flagship width with max_rank=1 (vertices and edges: 190 attention keys),
+# batch 8, the eval forward plus autoencoder_loss, BASELINE2_CALLS times.
+BASELINE2_OPTIONS = dict(max_rank=1)
+BASELINE2_CALLS = 20
+BASELINE2_KEYS = 190
+# The flagship step with the jumping-knowledge SCCN (a 2-layer LSTM over the
+# 6 layers' outputs, per simplex).
+JK_OPTIONS = dict(use_jumping_knowledge=True)
+JK_STEPS = 3
+# The kernels a Gumbel step launches once each, beside the attention's.
+GUMBEL_EXPECT = {"binary_gumbel": 1, "binary_gumbel_bwd": 1}
 # The Hard Concrete kernels, forward and backward (rows 4 and 5).
 HC_KERNELS = ("hard_concrete", "hard_concrete_bwd", "hard_concrete_learned", "hard_concrete_learned_bwd")
 COMBINE_KERNELS = ("sccn_combine_fwd", "sccn_combine_bwd", "sccn_combine_packed_fwd",
@@ -923,7 +980,7 @@ def phase_train(torch, port, counters) -> tuple:
     return model, state, step, batches[0], launches
 
 
-def phase_train_kernels(torch, attention, model, state, step, batch) -> tuple:
+def phase_train_kernels(torch, attention, model, state, step, batch, inputs="main path train step") -> tuple:
     """The attention forward and backward kernels on the inputs of one more
     train step's cross-attention: q, k, v, the mask, and the gradient dO
     that reached the attention output (captured after the launch counts
@@ -949,8 +1006,8 @@ def phase_train_kernels(torch, attention, model, state, step, batch) -> tuple:
     with torch.inference_mode():
         fwd = measure_attention(torch, attention, q, k, v, mask, ca.num_heads, TOL_FP32_DENSE)
     bwd = measure_attention_bwd(torch, attention, q, k, v, mask, dout, ca.num_heads)
-    emit("kernel", kernel="masked_attention_fwd", inputs="main path train step", shape=shape, results=[fwd])
-    emit("kernel", kernel="masked_attention_bwd", inputs="main path train step", shape=shape, results=[bwd])
+    emit("kernel", kernel="masked_attention_fwd", inputs=inputs, shape=shape, results=[fwd])
+    emit("kernel", kernel="masked_attention_bwd", inputs=inputs, shape=shape, results=[bwd])
     return fwd, bwd
 
 
@@ -1005,7 +1062,24 @@ def surrogate(torch, model, batch, noise, w, hard_noise=None):
     recon = model.decode(enc, t // model.num_bands, True)
     reg = rank_diversity_entropy(enc.rectified).mean() + vertex_count_penalty(
         enc.rectified.vertices, model.min_active_vertices, model.max_active_vertices).mean()
-    return (recon * w).sum() + contrastive + reg + enc.l0.mean(), enc
+    return (recon * w).sum() + contrastive + reg + enc.l0.mean(), enc, recon
+
+
+def step_cotangent(torch, model, batch, noise, weights):
+    """The train loss's gradient with respect to the reconstruction at
+    ``model``'s forward on ``batch`` and ``noise``: the cotangent that the
+    step's backward pulls through the decoder. The surrogate with this w
+    has the real step's gradient through the reconstruction, with the
+    spectral loss's ill-conditioned Jacobian evaluated once and shared."""
+    from topo_audio_autoencoder_torch.training.losses import autoencoder_loss
+
+    with torch.no_grad():
+        _, enc, recon = surrogate(torch, model, batch, noise, 0.0)
+    recon = recon.detach().requires_grad_()
+    zeros = torch.zeros(recon.shape[0], device=recon.device)
+    total, _ = autoencoder_loss(recon, batch[:, 0], {"binary_entropy": zeros, "diversity": zeros}, enc.valid,
+                                weights)
+    return torch.autograd.grad(total, recon)[0]
 
 
 def hc_bound(n: int, elt: int, row_bytes: int = 0) -> tuple[float, str]:
@@ -1261,11 +1335,16 @@ def phase_sampler_launch(torch, fused, hc, n_simplices: int) -> dict:
     return {(r["sampler"], r["dtype"]): r for r in results}
 
 
-def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, expect) -> tuple:
-    """A Hard Concrete train step at full width, fp32: a warm-up step and
-    ``steps`` timed ones. ``expect`` names the kernels that must launch
-    once per step; the other sampler kernels must not launch."""
-    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED, device=DEVICE, **options)
+def phase_train_model(torch, port, counters, phase, options, b, g, steps, weights, expect, config=FLAGSHIP,
+                      fused=False) -> tuple:
+    """A train step of ``config`` with ``options`` at full width, fp32 (with
+    ``fused``, every SCCN layer's combine fused): a warm-up step and
+    ``steps`` timed ones. The attention forward and backward must launch
+    once a step, each kernel of ``expect`` (name: launches a step) as often
+    as it says, and no other sampler or combine kernel at all."""
+    model = port.AudioAutoencoder.create(**config, num_samples=NUM_SAMPLES, seed=SEED, device=DEVICE, **options)
+    if fused:
+        set_fused_combine(model, True)
     opt = port.make_optimizer(accumulate_grad_batches=1)
     state = port.create_train_state(model, opt)
     step = port.make_train_step(model, opt, weights)
@@ -1277,8 +1356,8 @@ def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, 
     state, times, components, launches = timed_steps(torch, step, state, batches, counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n = len(batches)
-    for name in ("masked_attention_fwd", "masked_attention_bwd", *expect):
-        check(launches[name] == n, f"{phase}: {name} launched {launches[name]} times in {n} steps")
+    for name, per_step in {"masked_attention_fwd": 1, "masked_attention_bwd": 1, **expect}.items():
+        check(launches[name] == per_step * n, f"{phase}: {name} launched {launches[name]} times in {n} steps")
     for name in ("binary_gumbel", "binary_gumbel_bwd", *HC_KERNELS, *COMBINE_KERNELS):
         if name not in expect:
             check(launches[name] == 0, f"{phase}: {name} launched {launches[name]} times")
@@ -1292,9 +1371,10 @@ def phase_train_hc(torch, port, counters, phase, options, b, g, steps, weights, 
                            generator=torch.Generator(device=DEVICE).manual_seed(SEED))
     keys = enc.masks[1:]
     emit(
-        phase, config=FLAGSHIP, options=options, anchors=b, group=g, samples=NUM_SAMPLES, dtype="float32",
-        temperature=TEMPERATURE, l0_penalty=weights.l0_penalty, steps_timed=steps, step_ms=times,
-        step_ms_median=step_ms, anchors_per_s=b / (step_ms / 1e3), clips_per_s=b * g / (step_ms / 1e3),
+        phase, config=config, options=options, fused_combine=fused, anchors=b, group=g, samples=NUM_SAMPLES,
+        dtype="float32", temperature=TEMPERATURE, l0_penalty=weights.l0_penalty, steps_timed=steps,
+        step_ms=times, step_ms_median=step_ms, step_ms_spread=[min(times[1:]), max(times[1:])],
+        anchors_per_s=b / (step_ms / 1e3), clips_per_s=b * g / (step_ms / 1e3),
         components=components, launches=launches, launches_per_step={k: v / n for k, v in launches.items()},
         peak_mem_gib=peak_gib, num_params=model.num_params(),
         active_attention_keys_per_clip=float(sum(m.sum() for m in keys)) / b,
@@ -1364,15 +1444,17 @@ def phase_encode_hc(torch, port, counters) -> None:
 def parity_inputs(torch, cpu, batch, options):
     """The injected uniforms of a parity step: the relaxation's [2, S] and,
     for a hard model, the four per-rank Bernoulli draws, and the weights w
-    of the surrogate. For a Hard Concrete or hard model the seed is the
-    first (from SEED + 5 up) whose every pre-clip gate and every draw
-    clears HC_MARGIN on the CPU: within rounding of the clip, a gate is
-    exactly 0 on one side and ~1e-8 on the other and flips an attention
-    key. Returns (noise, hard_noise, w, margins)."""
+    of the surrogate. For a Hard Concrete, hard or packed model the seed is
+    the first (from SEED + 5 up) whose every pre-clip gate, every draw and
+    every packed rank's K-th select key clears HC_MARGIN on the CPU: within
+    rounding of the clip, a gate is exactly 0 on one side and ~1e-8 on the
+    other and flips an attention key; a key within rounding of the K-th
+    changes the packed set. Returns (noise, hard_noise, w, margins)."""
     hc = options.get("sampler") == "hard_concrete"
     hard = options.get("hard", False)
+    caps = options.get("pack_capacities")
     s_total = cpu.tables.total_simplices
-    if hc or hard:
+    if hc or hard or caps:
         b, g, _, t = batch.shape
         with torch.no_grad():
             logits = cpu.encoder.compute_logits(cpu.pqmf(batch.reshape(b * g, 1, t)).transpose(-1, -2), True)
@@ -1397,29 +1479,43 @@ def parity_inputs(torch, cpu, batch, options):
             beta, gamma, zeta = stretch
             pre = torch.sigmoid((torch.log(u) - torch.log1p(-u) + biased) / beta) * (zeta - gamma) + gamma
             margins["clip"] = float(torch.minimum(pre.abs(), (pre - 1).abs()).min())
-        if hard:
+        if hard or caps:
             with torch.no_grad():
-                rect = cpu.encoder.generate_complex(anchors, TEMPERATURE, True, noise=noise,
-                                                    hard_noise=hard_noise).rectified
+                enc = cpu.encoder.generate_complex(anchors, TEMPERATURE, True, noise=noise, hard_noise=hard_noise)
+        if hard:
             margins["draw"] = min(float((h.double() - p.double()).abs().min())
-                                  for h, p in zip(hard_noise, rect.ranks))
+                                  for h, p in zip(hard_noise, enc.rectified.ranks))
+        if caps:
+            margins["select"] = select_margin(enc.rectified, caps)
         if all(m > HC_MARGIN for m in margins.values()):
             margins["seed_attempt"] = attempt
             return noise, hard_noise, w, margins
     raise CheckFailed(f"no parity seed in {HC_SEED_TRIES} clears the mask margin {HC_MARGIN}: {margins}")
 
 
+def select_margin(rectified, caps) -> float:
+    """The smallest gap between the K-th and (K+1)-th select keys (mask +
+    rectified probability, in their dtype, as the encoder forms them) of
+    any packed rank and anchor of a soft model."""
+    gaps = []
+    for p, cap in zip(rectified.ranks, caps):
+        if cap and cap < p.shape[-1]:
+            top = ((p > 0).to(p.dtype) + p).double().sort(dim=-1, descending=True).values
+            gaps.append(float((top[:, cap - 1] - top[:, cap]).min()))
+    return min(gaps)
+
+
 def phase_train_parity(torch, port, training, phase="train_parity", options=None, group=TRAIN_G,
-                       weights=None) -> None:
+                       weights=None, config=FLAGSHIP) -> None:
     """One train step's loss and gradients on the card against the CPU plain
     path: the same weights (dropout off), batch and injected uniforms (the
     relaxation's and, for a hard model, the Bernoulli draws'); and the
     encoder's masks equal bit for bit."""
     options = options or {}
     weights = weights or training.LossWeights()
-    gpu = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 2,
+    gpu = port.AudioAutoencoder.create(**config, num_samples=NUM_SAMPLES, seed=SEED + 2,
                                        device=DEVICE, dropout=0.0, **options)
-    cpu = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 3,
+    cpu = port.AudioAutoencoder.create(**config, num_samples=NUM_SAMPLES, seed=SEED + 3,
                                        device="cpu", dropout=0.0, **options)
     cpu.load_state_dict({k: t.cpu() for k, t in gpu.state_dict().items()})
     batch = torch.from_numpy(make_clips(2 * group, SEED + 400).reshape(2, group, 1, NUM_SAMPLES))
@@ -1430,7 +1526,7 @@ def phase_train_parity(torch, port, training, phase="train_parity", options=None
         total, comps, grads = training.make_loss_and_grads(model, weights)(
             batch.to(device), TEMPERATURE, SEED, 0, noise.to(device), hn)
         names, params = zip(*model.named_parameters())
-        val, enc = surrogate(torch, model, batch.to(device), noise.to(device), w.to(device), hn)
+        val, enc, _ = surrogate(torch, model, batch.to(device), noise.to(device), w.to(device), hn)
         sgrads = dict(zip(names, torch.autograd.grad(val, params)))
         return (float(total), {k: float(v) for k, v in comps.items()},
                 {n: g.cpu().double() for n, g in grads.items()}, val.item(),
@@ -1459,7 +1555,7 @@ def phase_train_parity(torch, port, training, phase="train_parity", options=None
     worst = max(leaf_err, key=leaf_err.get)
     sur_err = abs(g_val - c_val) / abs(c_val)
     emit(
-        phase, options=options, anchors=2, group=group, leaves=len(c_grads),
+        phase, config=config, options=options, anchors=2, group=group, leaves=len(c_grads),
         loss_rel_err=loss_err, component_rel_err=comp_err, loss_rtol=PARITY_LOSS_RTOL,
         grad_rel_l2=grad_err, grad_rel_l2_tol=PARITY_GRAD_REL_L2, grad_cpu_floor_rel_l2=floor,
         floor_nudge=FLOOR_NUDGE, grad_conditioned=conditioned,
@@ -1781,6 +1877,113 @@ def set_fused_combine(model, on: bool) -> None:
         layer.fused_combine = on
 
 
+def fused_step_parity(torch, training, counters, model, batch, rank_layers, phase, packed=False) -> dict:
+    """One step fused against unfused on one card: ``model``, ``batch`` and
+    injected uniforms shared; the loss, its components, the gradient and
+    every leaf of the surrogate within train_parity's bounds. Fused, rows 6
+    and 7 launch ``rank_layers`` times in each pass (the step's forward and
+    backward, the surrogate's forward and backward); unfused, never.
+
+    ``packed``: the packed step's whole gradient is not stable at fp32 (a
+    1e-6 nudge of the batch moves it by 1e-2 to 1, PERF.md §6), so there
+    cuDNN runs its deterministic algorithms, a second surrogate whose w is
+    the real loss's gradient at the unfused reconstruction
+    (``step_cotangent``; the real gradient on every decoder leaf) is held
+    leaf by leaf at SURROGATE_TOL and as a whole at PARITY_GRAD_REL_L2, and
+    the whole gradient within PARITY_GRAD_REL_L2 only where it is conditioned
+    (train_parity's rule: unless the unfused gradient moves by more than
+    PARITY_GRAD_REL_L2 under the nudge). It also reads the unfused
+    gradient's repeatability over two runs, with cuDNN deterministic and
+    with its default algorithms. Returns the errors and readings."""
+    rng = np.random.default_rng(SEED + 8)
+    b = batch.shape[0]
+    noise = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (b, model.tables.total_simplices))
+                             .astype(np.float32)).to(DEVICE)
+    w = torch.from_numpy(rng.standard_normal((b, 1, NUM_SAMPLES)).astype(np.float32)).to(DEVICE)
+    names, params = zip(*model.named_parameters())
+    loss_and_grads = training.make_loss_and_grads(model)
+
+    def l2(ts):
+        return math.sqrt(sum(float((t ** 2).sum()) for t in ts))
+
+    def rel(a, ref):
+        return l2(a[k] - ref[k] for k in ref) / l2(ref.values())
+
+    def unfused_grads(scale=1.0):
+        set_fused_combine(model, False)
+        grads = loss_and_grads(batch * np.float32(scale), TEMPERATURE, SEED, 0, noise)[2]
+        return {k: g.double() for k, g in grads.items()}
+
+    def leaf_errs(got, want):
+        scale = max(float(g.abs().max()) for g in want.values())
+        errs = {k: float((got[k] - want[k]).abs().max()) / scale for k in want}
+        worst = max(errs, key=errs.get)
+        return worst, errs[worst]
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    if packed:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        ws = {"surrogate": w}
+        if packed:
+            set_fused_combine(model, False)
+            ws["cotangent"] = step_cotangent(torch, model, batch, noise, training.LossWeights())
+        runs = {}
+        for fused in (True, False):
+            set_fused_combine(model, fused)
+            for c in counters.values():
+                c.launches = 0
+            total, comps, grads = loss_and_grads(batch, TEMPERATURE, SEED, 0, noise)
+            sgrads = {}
+            for name, wt in ws.items():
+                val, _, _ = surrogate(torch, model, batch, noise, wt)
+                sgrads[name] = dict(zip(names, (g.double() for g in torch.autograd.grad(val, params))))
+            torch.cuda.synchronize()
+            runs[fused] = dict(total=float(total), comps={k: float(v) for k, v in comps.items()},
+                               grads={k: g.double() for k, g in grads.items()}, sgrads=sgrads,
+                               launches=counters["sccn_combine_fwd"].launches + counters["sccn_combine_bwd"].launches)
+        f, u = runs[True], runs[False]
+        grad_err = rel(f["grads"], u["grads"])
+        readings = {}
+        floor = None
+        if packed:
+            readings["repeat_rel_l2_cudnn_deterministic"] = rel(unfused_grads(), u["grads"])
+            floor = rel(unfused_grads(1 + FLOOR_NUDGE), u["grads"])
+            cudnn.deterministic, cudnn.benchmark = saved
+            first = unfused_grads()
+            readings["repeat_rel_l2_cudnn_default"] = rel(unfused_grads(), first)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        set_fused_combine(model, False)
+    check(f["launches"] == 2 * (1 + len(ws)) * rank_layers and u["launches"] == 0,
+          f"{phase}: fused/unfused parity launches {f['launches']}, {u['launches']}")
+    loss_err = abs(f["total"] - u["total"]) / abs(u["total"])
+    comp_err = {k: abs(f["comps"][k] - u["comps"][k]) / max(abs(u["comps"][k]), 1e-6) for k in u["comps"]}
+    leaf = {name: leaf_errs(f["sgrads"][name], u["sgrads"][name]) for name in ws}
+    check(loss_err <= PARITY_LOSS_RTOL and max(comp_err.values()) <= PARITY_LOSS_RTOL,
+          f"{phase} parity: loss {loss_err}, components {comp_err}")
+    if packed:
+        readings.update(grad_floor_rel_l2=floor, floor_nudge=FLOOR_NUDGE,
+                        grad_conditioned=floor <= PARITY_GRAD_REL_L2, cudnn_deterministic=True,
+                        cotangent_leaf_max_err=leaf["cotangent"][1], cotangent_worst_leaf=leaf["cotangent"][0],
+                        cotangent_grad_rel_l2=rel(f["sgrads"]["cotangent"], u["sgrads"]["cotangent"]))
+        check(grad_err <= PARITY_GRAD_REL_L2 or floor > PARITY_GRAD_REL_L2,
+              f"{phase} parity: gradient rel L2 {grad_err} (nudge floor {floor})")
+        check(readings["cotangent_grad_rel_l2"] <= PARITY_GRAD_REL_L2,
+              f"{phase} parity: cotangent gradient rel L2 {readings['cotangent_grad_rel_l2']}")
+    else:
+        check(grad_err <= PARITY_GRAD_REL_L2, f"{phase} parity: gradient rel L2 {grad_err}")
+    for name, (worst, err) in leaf.items():
+        check(err <= SURROGATE_TOL, f"{phase} parity: {name} leaf {worst}: {err}")
+    return dict(
+        leaves=len(u["grads"]), loss_rel_err=loss_err, component_rel_err=comp_err, loss_rtol=PARITY_LOSS_RTOL,
+        grad_rel_l2=grad_err, grad_rel_l2_tol=PARITY_GRAD_REL_L2, surrogate_leaf_max_err=leaf["surrogate"][1],
+        surrogate_worst_leaf=leaf["surrogate"][0], surrogate_tol=SURROGATE_TOL, parity_launches=f["launches"],
+        **readings,
+    )
+
+
 def phase_train_fused(torch, port, training, counters) -> dict:
     """The flagship Gumbel step with fused_combine on every layer: a warm-up
     and TRAIN_FUSED_STEPS timed steps on the train phase's batches, one
@@ -1821,42 +2024,7 @@ def phase_train_fused(torch, port, training, counters) -> dict:
     # Fused against unfused: one model (dropout off), the same batch and uniforms.
     model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 2, device=DEVICE,
                                          dropout=0.0)
-    rng = np.random.default_rng(SEED + 8)
-    noise = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (TRAIN_B, model.tables.total_simplices))
-                             .astype(np.float32)).to(DEVICE)
-    w = torch.from_numpy(rng.standard_normal((TRAIN_B, 1, NUM_SAMPLES)).astype(np.float32)).to(DEVICE)
-    batch = batches[0]
-    names, params = zip(*model.named_parameters())
-    runs = {}
-    for fused in (True, False):
-        set_fused_combine(model, fused)
-        for c in counters.values():
-            c.launches = 0
-        total, comps, grads = training.make_loss_and_grads(model)(batch, TEMPERATURE, SEED, 0, noise)
-        val, _ = surrogate(torch, model, batch, noise, w)
-        sgrads = torch.autograd.grad(val, params)
-        torch.cuda.synchronize()
-        runs[fused] = dict(total=float(total), comps={k: float(v) for k, v in comps.items()},
-                           grads={k: g.double() for k, g in grads.items()}, val=val.item(),
-                           sgrads=dict(zip(names, (g.double() for g in sgrads))),
-                           launches=counters["sccn_combine_fwd"].launches + counters["sccn_combine_bwd"].launches)
-    f, u = runs[True], runs[False]
-    check(f["launches"] == 4 * FUSED_RANK_LAYERS and u["launches"] == 0,
-          f"fused/unfused parity launches {f['launches']}, {u['launches']}")
-
-    def l2(ts):
-        return math.sqrt(sum(float((t ** 2).sum()) for t in ts))
-
-    loss_err = abs(f["total"] - u["total"]) / abs(u["total"])
-    comp_err = {k: abs(f["comps"][k] - u["comps"][k]) / max(abs(u["comps"][k]), 1e-6) for k in u["comps"]}
-    grad_err = l2(f["grads"][k] - u["grads"][k] for k in u["grads"]) / l2(u["grads"].values())
-    scale = max(float(g.abs().max()) for g in u["sgrads"].values())
-    leaf_err = {k: float((f["sgrads"][k] - u["sgrads"][k]).abs().max()) / scale for k in u["sgrads"]}
-    worst = max(leaf_err, key=leaf_err.get)
-    check(loss_err <= PARITY_LOSS_RTOL and max(comp_err.values()) <= PARITY_LOSS_RTOL,
-          f"train_fused parity: loss {loss_err}, components {comp_err}")
-    check(grad_err <= PARITY_GRAD_REL_L2, f"train_fused parity: gradient rel L2 {grad_err}")
-    check(leaf_err[worst] <= SURROGATE_TOL, f"train_fused parity: surrogate leaf {worst}: {leaf_err[worst]}")
+    parity = fused_step_parity(torch, training, counters, model, batches[0], FUSED_RANK_LAYERS, "train_fused")
 
     # One 8-clip decode, fused against unfused, on one shared latent.
     codec = port.Codec(model, device=DEVICE)
@@ -1877,14 +2045,187 @@ def phase_train_fused(torch, port, training, counters) -> dict:
     wave_err = (waves[True] - waves[False]).abs().max().item()
     check(wave_err <= DECODE_FUSED_TOL, f"fused decode vs unfused: {wave_err} > {DECODE_FUSED_TOL}")
     emit(
-        "train_fused_parity", anchors=TRAIN_B, group=TRAIN_G, leaves=len(u["grads"]),
-        loss_rel_err=loss_err, component_rel_err=comp_err, loss_rtol=PARITY_LOSS_RTOL,
-        grad_rel_l2=grad_err, grad_rel_l2_tol=PARITY_GRAD_REL_L2, surrogate_leaf_max_err=leaf_err[worst],
-        surrogate_worst_leaf=worst, surrogate_tol=SURROGATE_TOL, parity_launches=f["launches"],
+        "train_fused_parity", anchors=TRAIN_B, group=TRAIN_G, **parity,
         decode_clips=CLIPS, decode_max_abs_err=wave_err, decode_tol=DECODE_FUSED_TOL,
         decode_wave_max_abs=waves[False].abs().max().item(), decode_launches=decode_launches,
     )
     return launches
+
+
+def packed_memberships() -> list:
+    """The dense memberships built so far for the n=32 complex, as (rank,
+    device): the packed path may build v2e (rank 1) only."""
+    from topo_audio_autoencoder_torch.topology.builder import built_memberships
+
+    built = built_memberships(PACKED["num_vertices"])
+    check(all(rank == 1 for rank, _ in built), f"the packed path built a dense packed-rank membership: {built}")
+    return built
+
+
+def phase_train_packed(torch, port, attention, training, counters) -> None:
+    """The n=32 packed model's train step (fp32, B=16 x G=3): a warm-up and
+    PACKED_STEPS timed steps, rows 1, 2, 3 and 3's backward once a step; rows
+    1 and 2 on this step's attention inputs (1,264 keys); one profiled step;
+    the dense memberships it built."""
+    model, state, step, batch, _ = phase_train_model(
+        torch, port, counters, "train_packed", PACKED_OPTIONS, TRAIN_B, TRAIN_G, PACKED_STEPS,
+        training.LossWeights(), GUMBEL_EXPECT, config=PACKED)
+    fwd, _ = phase_train_kernels(torch, attention, model, state, step, batch, inputs="packed train step (n=32)")
+    check(fwd["keys"] == TRAIN_B * PACKED_KEYS, f"train_packed: {fwd['keys']} attention keys")
+    phase_train_trace(torch, state, step, batch, what="one n=32 packed train step (fp32, B=16, G=3)")
+    emit("packed_memberships", after="train_packed", built=packed_memberships())
+
+
+def phase_train_packed_fused(torch, port, training, counters) -> None:
+    """The packed step with fused_combine on every layer: ranks 1-3 of each
+    of the 6 layers clear MIN_FUSED_ROWS, so rows 6 and 7 launch 18 times a
+    step; then one step fused against unfused on a fresh model and the
+    first batch (fused_step_parity's packed rule)."""
+    per_step = {**GUMBEL_EXPECT, "sccn_combine_fwd": PACKED_FUSED_RANK_LAYERS,
+                "sccn_combine_bwd": PACKED_FUSED_RANK_LAYERS}
+    model, _, _, batch, _ = phase_train_model(
+        torch, port, counters, "train_packed_fused", PACKED_OPTIONS, TRAIN_B, TRAIN_G, PACKED_STEPS,
+        training.LossWeights(), per_step, config=PACKED, fused=True)
+    del model
+    torch.cuda.empty_cache()
+    # Fused against unfused, as train_fused: a fresh model (dropout off).
+    model = port.AudioAutoencoder.create(**PACKED, **PACKED_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED + 2,
+                                         device=DEVICE, dropout=0.0)
+    parity = fused_step_parity(torch, training, counters, model, batch, PACKED_FUSED_RANK_LAYERS,
+                               "train_packed_fused", packed=True)
+    emit("train_packed_fused_parity", anchors=TRAIN_B, group=TRAIN_G, **parity)
+
+
+def phase_serve_packed(torch, port, counters) -> None:
+    """The n=32 packed codec: a warm-up request and REQUESTS timed ones of 8
+    clips, encode -> pack_latent (5,181 bytes a clip) -> unpack_latent ->
+    decode. The latent round-trips the wire bit for bit; every active
+    triangle and tetrahedron fits its capacity (packing is exact, whatever
+    the order of equal keys); row 1 launches once a decode and nothing else
+    launches; the last decode's waveform on the card against the CPU plain
+    path's on the same latent and weights."""
+    model = port.AudioAutoencoder.create(**PACKED, **PACKED_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED,
+                                         device=DEVICE)
+    with torch.no_grad():
+        model.encoder.mlp2.bias += LOGIT_SHIFT
+    codec = port.Codec(model, device=DEVICE)
+    caps = PACKED_OPTIONS["pack_capacities"]
+    for c in counters.values():
+        c.launches = 0  # just before the serve path
+    timed = []
+    for i in range(REQUESTS + 1):  # request 0 warms up
+        x = make_clips(CLIPS, SEED + 800 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latent = codec.encode(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wire = port.pack_latent(latent)
+        back = port.unpack_latent(wire, PACKED["num_vertices"])
+        t2 = time.perf_counter()
+        y = codec.decode(back, NUM_SAMPLES)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        check(wire.shape == (CLIPS, PACKED_WIRE_BYTES), f"serve_packed: wire shape {wire.shape}")
+        for a, b in zip(latent.ranks, back.ranks):
+            check(torch.equal(a.cpu(), b), "serve_packed: latent does not round-trip bit-exactly")
+        active = [int(r.sum(dim=-1).max()) for r in latent.ranks]
+        check(all(not cap or a <= cap for a, cap in zip(active, caps)),
+              f"serve_packed: active rows {active} over the capacities {caps}")
+        check(tuple(y.shape) == (CLIPS, 1, NUM_SAMPLES) and bool(torch.isfinite(y).all()), "serve_packed: waveform")
+        if i > 0:
+            timed.append(dict(encode_ms=(t1 - t0) * 1e3, pack_unpack_ms=(t2 - t1) * 1e3,
+                              decode_ms=(t3 - t2) * 1e3, active_max=active,
+                              active_mean=[float(r.sum(dim=-1).mean()) for r in latent.ranks]))
+    counts = {name: c.launches for name, c in counters.items()}  # just after the serve path
+    check(counts["masked_attention_fwd"] == REQUESTS + 1 and sum(counts.values()) == REQUESTS + 1,
+          f"serve_packed: launches {counts} for {REQUESTS + 1} decodes")
+    cpu = port.AudioAutoencoder.create(**PACKED, **PACKED_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED + 1,
+                                       device="cpu")
+    cpu_codec = port.Codec(cpu, {k: t.cpu() for k, t in model.state_dict().items()}, device="cpu")
+    wave_cpu = cpu_codec.decode(back, NUM_SAMPLES)
+    wave_err = (y.cpu() - wave_cpu).abs().max().item()
+    check(wave_err <= WAVE_TOL, f"serve_packed: decode card vs cpu {wave_err} > {WAVE_TOL}")
+    enc = statistics.median(t["encode_ms"] for t in timed)
+    dec = statistics.median(t["decode_ms"] for t in timed)
+    emit(
+        "serve_packed", config=PACKED, options=PACKED_OPTIONS, clips=CLIPS, samples=NUM_SAMPLES, requests=timed,
+        encode_ms=enc, decode_ms=dec, clips_per_s=CLIPS / ((enc + dec) / 1e3),
+        wire_bytes_per_clip=int(wire.shape[1]), attention_keys=PACKED_KEYS, launches=counts,
+        decode_max_abs_err=wave_err, wave_tol=WAVE_TOL, wave_max_abs=wave_cpu.abs().max().item(),
+        num_params=model.num_params(), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+
+
+def phase_baseline2(torch, port, counters) -> None:
+    """BASELINE config 2: the flagship width with max_rank=1, batch 8, the
+    eval forward plus autoencoder_loss, BASELINE2_CALLS timed calls after a
+    warm-up; row 1 once a call over 190 keys, nothing else. The card's
+    latent, loss and waveform against the CPU plain path's (same weights and
+    clips); latent bits may differ only where a logit lies within LOGIT_TOL
+    of the threshold, and then the waveform is compared on one shared
+    latent."""
+    from topo_audio_autoencoder_torch.training.losses import autoencoder_loss
+
+    model = port.AudioAutoencoder.create(**FLAGSHIP, **BASELINE2_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED,
+                                         device=DEVICE)
+    cpu = port.AudioAutoencoder.create(**FLAGSHIP, **BASELINE2_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED + 1,
+                                       device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+    x = torch.from_numpy(make_clips(CLIPS, SEED + 900))
+    xg = x.to(DEVICE)
+
+    def forward(m, xx):
+        with torch.inference_mode():
+            out = m(xx, TEMPERATURE, train=False)
+            total, _ = autoencoder_loss(out.waveform, xx, out.aux, out.valid)
+        return out, total
+
+    for c in counters.values():
+        c.launches = 0  # just before the main path
+    times = []
+    for _ in range(BASELINE2_CALLS + 1):  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, total = forward(model, xg)
+        loss = float(total)
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {name: c.launches for name, c in counters.items()}  # just after
+    check(counts["masked_attention_fwd"] == BASELINE2_CALLS + 1 and sum(counts.values()) == BASELINE2_CALLS + 1,
+          f"baseline2: launches {counts}")
+    keys = sum(int(m.shape[-1]) for m in out.encoder_output.masks[1:])
+    check(keys == BASELINE2_KEYS and model.tables.sizes == (20, 190, 0, 0), f"baseline2: {keys} attention keys")
+    check(math.isfinite(loss) and bool(torch.isfinite(out.waveform).all()), "baseline2: non-finite output")
+    cpu_out, cpu_total = forward(cpu, x)
+    logits = cpu_out.encoder_output.logits.numpy()
+    logit_err = float(np.abs(out.encoder_output.logits.cpu().numpy() - logits).max())
+    check(logit_err <= LOGIT_TOL, f"baseline2: logits card vs cpu {logit_err}")
+    flips = sum(int((a.cpu() != b).sum()) for a, b in zip(out.encoder_output.probs.ranks, cpu_out.encoder_output.probs.ranks))
+    if flips == 0:
+        loss_err = abs(loss - float(cpu_total)) / abs(float(cpu_total))
+        wave_err = (out.waveform.cpu() - cpu_out.waveform).abs().max().item()
+        check(loss_err <= PARITY_LOSS_RTOL, f"baseline2: loss card vs cpu rel {loss_err}")
+    else:  # a flip is allowed only at the threshold; hold the decoder on the CPU's latent
+        bias = np.zeros_like(logits)
+        bias[:, : FLAGSHIP["num_vertices"]] = float(model.encoder.vertex_bias.detach().relu())
+        near = np.abs(logits + bias - 0.5) <= LOGIT_TOL
+        flipped = (out.encoder_output.logits.cpu().numpy() + bias > 0.5) != (logits + bias > 0.5)
+        check(not (flipped & ~near).any(), "baseline2: latent bits flip away from the threshold")
+        loss_err = None
+        with torch.inference_mode():
+            latent = cpu_out.encoder_output.probs
+            wave_err = (model.decode_from_probs(type(latent)(*(r.to(DEVICE) for r in latent.ranks)),
+                                                NUM_SAMPLES // FLAGSHIP["num_bands"]).cpu()
+                        - cpu.decode_from_probs(latent, NUM_SAMPLES // FLAGSHIP["num_bands"])).abs().max().item()
+    check(wave_err <= WAVE_TOL, f"baseline2: waveform card vs cpu {wave_err} > {WAVE_TOL}")
+    p50 = statistics.median(times[1:])
+    emit(
+        "baseline2", config=FLAGSHIP, options=BASELINE2_OPTIONS, clips=CLIPS, calls=BASELINE2_CALLS,
+        forward_loss_ms=times[1:], p50_ms=p50, clips_per_s=CLIPS / (p50 / 1e3), loss=loss, attention_keys=keys,
+        active=[float(r.sum(dim=-1).mean()) for r in out.encoder_output.probs.ranks], launches=counts,
+        logit_max_abs_err=logit_err, bits_flipped=flips, loss_rel_err=loss_err, loss_rtol=PARITY_LOSS_RTOL,
+        wave_max_abs_err=wave_err, wave_tol=WAVE_TOL, num_params=model.num_params(),
+    )
 
 
 def kernel_entry(name, source, replaces, launches, result) -> dict:
@@ -1968,15 +2309,16 @@ def main() -> int:
         del tmodel, tstate, tstep
         torch.cuda.empty_cache()
         phase_train_parity(torch, port, training)
-        hmodel, hstate, hstep, hbatch, hc_launches = phase_train_hc(
+        hmodel, hstate, hstep, hbatch, hc_launches = phase_train_model(
             torch, port, counters, "train_hc", HC_MODEL, HC_B, HC_G, HC_STEPS, training.LossWeights(),
-            ("hard_concrete", "hard_concrete_bwd"))
+            {"hard_concrete": 1, "hard_concrete_bwd": 1})
         phase_train_trace(torch, hstate, hstep, hbatch, what="one Hard Concrete hard train step (fp32, B=32, G=1)")
         del hmodel, hstate, hstep
         torch.cuda.empty_cache()
-        _, _, _, _, learned_launches = phase_train_hc(
+        _, _, _, _, learned_launches = phase_train_model(
             torch, port, counters, "train_hc_learned", HC_LEARNED_MODEL, TRAIN_B, TRAIN_G, HC_LEARNED_STEPS,
-            training.LossWeights(l0_penalty=HC_L0_PENALTY), ("hard_concrete_learned", "hard_concrete_learned_bwd"))
+            training.LossWeights(l0_penalty=HC_L0_PENALTY),
+            {"hard_concrete_learned": 1, "hard_concrete_learned_bwd": 1})
         torch.cuda.empty_cache()
         phase_encode_hc(torch, port, counters)
         phase_train_parity(torch, port, training, "train_parity_hc", HC_MODEL, group=HC_G)
@@ -1984,6 +2326,19 @@ def main() -> int:
                            weights=training.LossWeights(l0_penalty=HC_L0_PENALTY))
         torch.cuda.empty_cache()
         fused_launches = phase_train_fused(torch, port, training, counters)
+        torch.cuda.empty_cache()
+        phase_train_packed(torch, port, attention, training, counters)
+        torch.cuda.empty_cache()
+        phase_train_packed_fused(torch, port, training, counters)
+        torch.cuda.empty_cache()
+        phase_train_parity(torch, port, training, "train_parity_packed", PACKED_OPTIONS, config=PACKED)
+        phase_serve_packed(torch, port, counters)
+        emit("packed_memberships", after="serve_packed", built=packed_memberships())
+        torch.cuda.empty_cache()
+        phase_baseline2(torch, port, counters)
+        phase_train_parity(torch, port, training, "train_parity_jk", JK_OPTIONS)
+        phase_train_model(torch, port, counters, "train_jk", JK_OPTIONS, TRAIN_B, TRAIN_G, JK_STEPS,
+                          training.LossWeights(), GUMBEL_EXPECT)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -42,6 +42,7 @@ def test_port_modules_do_not_import_jax():
     assert len(modules) >= 15
     for kernel_module in ("attention", "fused_samplers", "fused_hard_concrete", "sccn_combine", "combine_diag"):
         assert f"topo_audio_autoencoder_torch.ops.{kernel_module}" in modules
+    assert "topo_audio_autoencoder_torch.topology.packed" in modules
 
 
 def _imported_roots(path: Path) -> set:

@@ -31,15 +31,18 @@ def cuda():
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
 # (B, Q, M, C, H). Beside the first two: ragged and whole 64-key windows and
 # one query row (the split over keys cuts at window edges), the backward's
-# 256-key dk/dv ranges at their edges, and head dims 2, 4, 8 and 32 at the
-# train step's Q and M.
+# 256-key dk/dv ranges at their edges, head dims 2, 4, 8 and 32 at the
+# train step's Q and M, the n=32 packed model's train step (496 + 512 + 256
+# keys) and BASELINE config 2's forward (max_rank=1: 190 keys).
 SHAPES = [
     (3, 20, 200, 8, 2), (4, 250, 1000, 64, 4),
     (3, 1, 1, 8, 2), (3, 250, 63, 64, 4), (3, 250, 64, 64, 4), (3, 250, 65, 64, 4),
     (3, 250, 255, 64, 4), (3, 250, 256, 64, 4), (3, 250, 257, 64, 4),
     (3, 250, 6175, 8, 4), (3, 250, 6175, 16, 4), (3, 250, 6175, 32, 4), (3, 250, 6175, 128, 4),
+    (16, 250, 1264, 64, 4), (8, 250, 190, 64, 4),
 ]
-SHAPE_IDS = ["small", "d16", "m1q1", "m63", "m64", "m65", "m255", "m256", "m257", "d2", "d4", "d8", "d32"]
+SHAPE_IDS = ["small", "d16", "m1q1", "m63", "m64", "m65", "m255", "m256", "m257", "d2", "d4", "d8", "d32",
+             "packed1264", "rank1_190"]
 # The backward on every shape but M=1: there each element has at most one
 # key, so dq is 0 in exact arithmetic and its relative error compares
 # round-off with round-off.
@@ -544,9 +547,13 @@ def test_hard_concrete_eval_backward_launches_the_kernel(cuda):
 COMBINE_RTOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2 ** -5, 2 ** -5)}
 # 37 and 3,000 rows: neither a multiple of the 64-row tile; 32, 33, 96 and
 # 4,097 rows: the edges of the kernels' 32-row units and half tiles; 18,240
-# and 77,520 rows: the flagship's two fused ranks, on the card's full grid.
-COMBINE_ROWS = [(1, 37), (3, 1000), (32,), (33,), (96,), (4097,), (16, 1140), (77520,)]
-COMBINE_ROW_IDS = ["37rows", "3000rows", "32rows", "33rows", "96rows", "4097rows", "18240rows", "77520rows"]
+# and 77,520 rows: the flagship's two fused ranks, on the card's full grid;
+# 7,936, 8,192 and 4,096 rows: the n=32 packed model's fused ranks 1-3 at
+# B=16 (496 dense edges, 512 and 256 packed rows).
+COMBINE_ROWS = [(1, 37), (3, 1000), (32,), (33,), (96,), (4097,), (16, 1140), (77520,), (16, 496), (16, 512),
+                (16, 256)]
+COMBINE_ROW_IDS = ["37rows", "3000rows", "32rows", "33rows", "96rows", "4097rows", "18240rows", "77520rows",
+                   "packed_r1_7936rows", "packed_r2_8192rows", "packed_r3_4096rows"]
 
 
 def _combine_inputs(cuda, dtype, m, lead, seed=0):

@@ -158,9 +158,10 @@ def test_train_mode_is_not_ported(params):
     """train=True against JAX: the sampled relaxation (on the uniforms JAX
     draws from its key), the SCCN's LayerNorms, the decoder. Dropout is off
     in both (flax's dropout stream cannot be reproduced; see the dropout
-    test). The name predates the port of the train path; the options that
-    are still not ported (packed operators, jumping knowledge, max_rank
-    truncation) raise."""
+    test). The name predates the port of the train path and of the last
+    options of ``create`` (packed operators, jumping knowledge, max_rank
+    truncation): ``create`` accepts each, and ``geometry()`` hands
+    ``pack_capacities`` back as a list."""
     jm = JaxAutoencoder.create(**TINY, dropout=0.0)
     x = waveforms(WAVE_SEED, 2)
     rng = jax.random.PRNGKey(4)
@@ -181,10 +182,13 @@ def test_train_mode_is_not_ported(params):
     with torch.no_grad():
         plain = pm(torch.from_numpy(x), 0.5, train=True, noise=torch.from_numpy(u))
     np.testing.assert_allclose(plain.waveform.numpy(), got.waveform.numpy(), atol=1e-6)
-    for option in (dict(pack_capacities=(None, None, 8, 4)), dict(use_jumping_knowledge=True),
-                   dict(max_rank=1)):
-        with pytest.raises(TypeError):
-            type(pm).create(**TINY, device="cpu", **option)
+    for option, caps in ((dict(pack_capacities=(None, None, 8, 4)), [None, None, 8, 4]),
+                         (dict(use_jumping_knowledge=True), None), (dict(max_rank=1), None)):
+        built = type(pm).create(**TINY, num_samples=x.shape[-1], device="cpu", **option)
+        assert built.geometry()["pack_capacities"] == caps
+        again = type(pm).create(**TINY, num_samples=x.shape[-1], device="cpu",
+                                pack_capacities=built.geometry()["pack_capacities"])
+        assert again.geometry() == built.geometry()
 
 
 def test_dropout_rate_and_scaling():

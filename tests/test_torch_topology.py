@@ -105,3 +105,33 @@ def test_builder_products_match_jax():
     for r in (1, 2):
         close(ops_t.gram_diag(r, via_upper=True), ops_j.gram_diag(r, via_upper=True))
     close(ops_t.gram_diag(3, via_upper=False), ops_j.gram_diag(3, via_upper=False))
+
+
+@pytest.mark.parametrize("max_rank,rank", [(3, 0), (3, 1), (3, 2), (3, 3), (1, 1)])
+def test_same_rank_matmul_and_dense_adjacency_match_jax(max_rank, rank):
+    """A_rank @ x without the matrix, and the materialized A_rank (through
+    adj0, inc1-3 and adj_diag), against the JAX package's; the product
+    equals the matrix times x. Under max_rank=1 the coface rank is empty
+    and A_1 is zero."""
+    n, c = 6, 4
+    tables = pt.build_tables(n, max_rank)
+    jtables = jt.build_tables(n, max_rank)
+    rng = np.random.default_rng(4 + rank)
+    rect_np = np.array(
+        jt.enforce_constraints_flat(jnp.asarray(_probs(rng, tables, zero_frac=0.05)), jtables).all_simplices
+    )
+    ranks = tables.split(rect_np)
+    ops_t = pt.build_operators(pt.RectifiedProbs(*(torch.from_numpy(r) for r in ranks)), tables)
+    ops_j = jax_build_operators(jt.RectifiedProbs(*(jnp.asarray(r) for r in ranks)), jtables)
+    x = rng.standard_normal((3, tables.sizes[rank], c)).astype(np.float32)
+    got = pt.same_rank_matmul(ops_t, rank, torch.from_numpy(x))
+    want = jt.same_rank_matmul(ops_j, rank, jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    adj = pt.dense_adjacency(ops_t, rank)
+    np.testing.assert_allclose(adj.numpy(), np.asarray(jt.dense_adjacency(ops_j, rank)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose((adj @ torch.from_numpy(x)).numpy(), got.numpy(), rtol=1e-5, atol=1e-5)
+    if max_rank == 1:
+        assert not adj.any()
+    else:
+        assert adj.abs().max() > 0
+        torch.testing.assert_close(adj, adj.transpose(-1, -2))

@@ -270,11 +270,12 @@ def test_parameters_after_updates_follow_jax(run, port):
     assert checked > 1000
 
 
-def _jax_surrogate(jm, w, temperature=TEMPERATURE):
+def _jax_surrogate(jm, w, temperature=TEMPERATURE, with_recon=False):
     """The JAX train step's forward (train_step.py loss_fn) with the
     spectral distance replaced by <recon, w>: well conditioned. G = 1
     drops the contrastive term; the expected-L0 term (zero for the Gumbel
-    sampler) is added as it is."""
+    sampler) is added as it is. ``with_recon``: (value, reconstruction),
+    for ``value_and_grad(..., has_aux=True)``."""
 
     def f(params, batch, rng):
         b, g, _, t = batch.shape
@@ -290,12 +291,13 @@ def _jax_surrogate(jm, w, temperature=TEMPERATURE):
                          method=lambda m, e, dl, tr: m.decode(e, dl, tr))
         reg = rank_diversity_entropy(enc.rectified).mean() + vertex_count_penalty(
             enc.rectified.vertices, jm.min_active_vertices, jm.max_active_vertices).mean()
-        return (recon * w).sum() + contrastive + reg + enc.l0.mean()
+        val = (recon * w).sum() + contrastive + reg + enc.l0.mean()
+        return (val, recon) if with_recon else val
 
     return f
 
 
-def _port_surrogate(pm, batch, noise, w, temperature=TEMPERATURE, hard_noise=None):
+def _port_surrogate(pm, batch, noise, w, temperature=TEMPERATURE, hard_noise=None, with_recon=False):
     b, g, _, t = batch.shape
     flat = batch.reshape(b * g, 1, t)
     logits = pm.encoder.compute_logits(pm.pqmf(flat).transpose(-1, -2), True)
@@ -305,7 +307,8 @@ def _port_surrogate(pm, batch, noise, w, temperature=TEMPERATURE, hard_noise=Non
     recon = pm.decode(enc, t // pm.num_bands, True)
     reg = pt_entropy(enc.rectified).mean() + pt_count_penalty(
         enc.rectified.vertices, pm.min_active_vertices, pm.max_active_vertices).mean()
-    return (recon * w).sum() + contrastive + reg + enc.l0.mean()
+    val = (recon * w).sum() + contrastive + reg + enc.l0.mean()
+    return (val, recon) if with_recon else val
 
 
 # Every gradient leaf of the surrogate: fp32 in both, sums in other orders;

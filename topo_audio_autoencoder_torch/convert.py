@@ -9,7 +9,12 @@ name by joining it with dots and renaming the leaf:
 - Conv ``kernel`` [k, in/g, out]   -> ``weight`` [out, in/g, k]
 - LayerNorm/GroupNorm ``scale``    -> ``weight``; ``bias`` stays ``bias``
 - the SCCN's raw [c, c] / [c, 1] / [c] weights, the embedding tables and
-  the scalars keep their names and layouts.
+  the scalars keep their names and layouts; under ``max_rank`` truncation
+  the empty ranks' tables are [0, C] leaves on both sides.
+- the jumping-knowledge LSTM cells (``decoder/sccn/OptimizedLSTMCell_{0,1}``)
+  are Denses too: the input kernels ``ii/if/ig/io`` and the hidden kernels
+  and biases ``hi/hf/hg/ho`` map onto the port cell's ``nn.Linear`` of the
+  same name (``models.sccn.LSTMCell``).
 
 It raises on a leaf it does not consume, on a port parameter it does not
 fill, and on any shape that does not match the port's.

@@ -2,12 +2,12 @@
 
 Port of ``topo_audio_autoencoder_tpu.models.autoencoder`` for both
 samplers (binary Gumbel, Hard Concrete with a fixed or learned stretch),
-the soft and the straight-through ``hard`` paths, and the dense
-masked-static operators, in training (``train=True``: dropout, the sampled
-relaxation, the SCCN's LayerNorms) and in eval (the noiseless relaxation).
-Waveforms are NCW ``[B, 1, T]`` at the facade; internals are
-channels-last. Packed operators, jumping knowledge and ``max_rank``
-truncation are not ported: ``create`` refuses them as unknown arguments.
+the soft and the straight-through ``hard`` paths, the dense masked-static
+or the packed operators (``pack_capacities``), ``max_rank`` truncation and
+the jumping-knowledge SCCN, in training (``train=True``: dropout, the
+sampled relaxation, the SCCN's LayerNorms) and in eval (the noiseless
+relaxation). Waveforms are NCW ``[B, 1, T]`` at the facade; internals are
+channels-last.
 
 ``AudioAutoencoder.create`` builds the model on ``cuda`` unless the caller
 passes ``device="cpu"``, and raises when no card is present and none was
@@ -23,7 +23,6 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.pqmf import PQMF
-from ..topology.builder import build_operators
 from ..topology.complexes import ComplexTables, build_tables
 from ..topology.rectifier import RectifiedProbs, enforce_constraints
 from .decoder import AudioDecoder
@@ -62,6 +61,8 @@ class AudioAutoencoder(nn.Module):
         hard: bool = False,
         sampler: str = "gumbel",
         learned_hc: bool = False,
+        use_jumping_knowledge: bool = False,
+        pack_capacities: tuple | None = None,
     ):
         super().__init__()
         self.tables = tables
@@ -74,13 +75,15 @@ class AudioAutoencoder(nn.Module):
         self.pqmf = PQMF(attenuation=pqmf_attenuation, n_band=num_bands)
         self.encoder = AudioEncoder(
             tables, num_bands, sccn_hidden_dim, num_samples, dropout, use_fused_sampler,
-            hard=hard, sampler=sampler, learned_hc=learned_hc,
+            hard=hard, sampler=sampler, learned_hc=learned_hc, pack_capacities=pack_capacities,
         )
         self.decoder = AudioDecoder(
             sccn_hidden_dim=sccn_hidden_dim,
             initial_sequence_length=250,
             output_channels=num_bands,
             n_sccn_layers=n_sccn_layers,
+            use_jumping_knowledge=use_jumping_knowledge,
+            sizes=tables.sizes,
         )
 
     @classmethod
@@ -101,15 +104,21 @@ class AudioAutoencoder(nn.Module):
         hard: bool = False,
         sampler: str = "gumbel",
         learned_hc: bool = False,
+        max_rank: int = 3,
+        use_jumping_knowledge: bool = False,
+        pack_capacities: tuple | None = None,
     ) -> "AudioAutoencoder":
         """Build tables, filterbank and seeded weights, on ``device``
         (default ``cuda``). ``num_samples`` is the clip length the encoder's
         MLP is sized for (flax infers it from the first call). ``dropout``,
-        ``use_fused_sampler``, ``hard``, ``sampler`` and ``learned_hc`` have
-        the JAX package's defaults and meanings."""
+        ``use_fused_sampler``, ``hard``, ``sampler``, ``learned_hc``,
+        ``max_rank`` (1 = vertices and edges only: the higher ranks are
+        empty), ``use_jumping_knowledge`` and ``pack_capacities`` (per-rank
+        top-K capacities, e.g. (0, 0, 512, 256) at n=32; None keeps every
+        rank dense) have the JAX package's defaults and meanings."""
         device = resolve_device(device)
         model = cls(
-            tables=build_tables(num_vertices),
+            tables=build_tables(num_vertices, max_rank),
             num_bands=num_bands,
             sccn_hidden_dim=sccn_hidden_dim,
             min_active_vertices=min_active_vertices,
@@ -122,6 +131,8 @@ class AudioAutoencoder(nn.Module):
             hard=hard,
             sampler=sampler,
             learned_hc=learned_hc,
+            use_jumping_knowledge=use_jumping_knowledge,
+            pack_capacities=pack_capacities,
         )
         model.reset_parameters(seed)
         return model.to(device).eval()
@@ -167,11 +178,14 @@ class AudioAutoencoder(nn.Module):
         """Decode straight from a per-rank probability latent: embeddings and
         operators are rebuilt from the latent alone. The latent is
         re-rectified first: idempotent on valid latents, and it restores
-        face closure to a thresholded Hard Concrete latent."""
+        face closure to a thresholded Hard Concrete latent. On the packed
+        path the thresholded latent is sparse, and packing is exact whenever
+        the capacities cover its active rows."""
         rect = enforce_constraints(*probs.ranks, self.tables)
         masks = tuple((p > 0).to(p.dtype) for p in rect.ranks)
-        ops = build_operators(rect, self.tables, masks=masks)
-        sub = self.decoder(self.encoder.embed(rect), ops, masks, desired_length, train)
+        ops = self.encoder.operators(rect, masks)
+        embeddings = self.encoder.embed(rect, ops.idx)
+        sub = self.decoder(embeddings, ops, ops.masks, desired_length, train)
         return self.pqmf.inverse(sub.transpose(-1, -2))
 
     def geometry(self) -> dict:
@@ -186,7 +200,9 @@ class AudioAutoencoder(nn.Module):
             "learned_hc": self.encoder.learned_hc,
             "min_active_vertices": self.min_active_vertices,
             "max_active_vertices": self.max_active_vertices,
-            "pack_capacities": None,
+            "pack_capacities": (
+                list(self.encoder.pack_capacities) if self.encoder.pack_capacities is not None else None
+            ),
         }
 
     def forward(

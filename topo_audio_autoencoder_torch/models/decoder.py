@@ -3,14 +3,16 @@
 Port of ``topo_audio_autoencoder_tpu.models.decoder``. Every stage is
 masked-static:
 
-- the SCCN runs over all simplices (inactive ones carry zero operator
-  rows/cols);
+- the SCCN (``GradientSCCN``, or ``JumpingKnowledgeSCCN`` with
+  ``use_jumping_knowledge``) runs over all simplices, inactive ones carrying
+  zero operator rows/cols, or over the packed rows of ``PackedOperators``;
 - the query sequence comes from the active vertex features, packed first
   by a stable sort, with the tail zeroed (the temporal convs' zero
   padding), GroupNorm moments over the valid steps only, and a linear
   resize of the variable-length sequence to ``desired_length // 16``;
-- the cross-attention memory is all rank 1-3 simplices with inactive keys
-  masked (``ops.attention``, a CUDA kernel on the card).
+- the cross-attention memory is all rank 1-3 simplices (packed ranks: their
+  K packed rows) with inactive keys masked (``ops.attention``, a CUDA
+  kernel on the card).
 
 Tensors are channels-last ``[B, T, C]`` between stages, as in the JAX
 package; the convs run on the NCW transpose.
@@ -25,7 +27,7 @@ from ..ops.attention import fused_masked_attention
 from ..topology.builder import SimplicialOperators
 from .encoder import gelu, group_norm, layer_norm
 from .init import init_standard_module
-from .sccn import GradientSCCN
+from .sccn import GradientSCCN, JumpingKnowledgeSCCN
 
 
 def linear_resize(x: torch.Tensor, out_len: int) -> torch.Tensor:
@@ -149,11 +151,16 @@ class AudioDecoder(nn.Module):
         initial_sequence_length: int = 250,
         output_channels: int = 16,
         n_sccn_layers: int = 6,
+        use_jumping_knowledge: bool = False,
+        sizes=None,
     ):
+        """``sizes``: the complex's rank sizes (default: every rank present),
+        which tell the SCCN the ranks ``max_rank`` truncation empties."""
         super().__init__()
         c = sccn_hidden_dim
         self.initial_sequence_length = initial_sequence_length
-        self.sccn = GradientSCCN(c, n_sccn_layers)
+        backbone = JumpingKnowledgeSCCN if use_jumping_knowledge else GradientSCCN
+        self.sccn = backbone(c, n_sccn_layers, sizes)
         self.v2q_dense0 = nn.Linear(c, 2 * c)
         self.v2q_norm0 = layer_norm(2 * c)
         self.v2q_dense1 = nn.Linear(2 * c, c)

@@ -3,7 +3,8 @@
 Port of ``topo_audio_autoencoder_tpu.models.encoder`` for both samplers
 (binary Gumbel and Hard Concrete, with a fixed or a learned per-rank
 stretch), the soft and the straight-through ``hard`` paths, and the dense
-masked-static operators, in training and in eval.
+masked-static or the packed operators (``pack_capacities``), in training
+and in eval.
 
 - The 16 per-band conv stacks are one grouped conv per stage (``groups`` =
   number of bands), channels band-major, so the per-band GroupNorm becomes
@@ -38,6 +39,7 @@ from ..ops.samplers import (
 )
 from ..topology.builder import SimplicialOperators, build_operators
 from ..topology.complexes import ComplexTables
+from ..topology.packed import build_packed_operators
 from ..topology.rectifier import RectifiedProbs, enforce_constraints
 from .init import init_standard_module
 
@@ -90,11 +92,11 @@ def frames_after_convs(band_length: int) -> int:
 
 class EncoderOutput(NamedTuple):
     logits: torch.Tensor  # [B, S_total] raw simplex logits (pre vertex bias)
-    embeddings: tuple  # per-rank [B, S_r, C], zero rows when inactive
-    ops: SimplicialOperators
-    probs: RectifiedProbs  # per-rank output probabilities (STE'd if hard)
-    rectified: RectifiedProbs  # soft rectified probabilities
-    masks: tuple  # per-rank {0,1} active masks [B, S_r]
+    embeddings: tuple  # per-rank [B, S_r, C] (packed: [B, K_r, C]), zero rows when inactive
+    ops: SimplicialOperators  # or PackedOperators
+    probs: RectifiedProbs  # per-rank output probabilities (STE'd if hard), full layout
+    rectified: RectifiedProbs  # soft rectified probabilities, full layout
+    masks: tuple  # per-rank {0,1} active masks [B, S_r] (packed: [B, K_r])
     valid: torch.Tensor  # [B] bool: at least one active vertex
     l0: torch.Tensor  # [B] expected share of open Hard Concrete gates; zeros for Gumbel
 
@@ -143,7 +145,9 @@ class AudioEncoder(nn.Module):
     ``use_fused_sampler`` (the default, as in the JAX package) samples the
     train-mode relaxation through ``ops.fused_samplers`` or
     ``ops.fused_hard_concrete`` (CUDA kernels on the card); ``False`` takes
-    the plain samplers of ``ops.samplers``.
+    the plain samplers of ``ops.samplers``. ``pack_capacities`` (per-rank
+    ints, 0 or None for a dense rank) packs the operators, embeddings and
+    masks of the capacity-limited ranks (``topology.packed``).
     """
 
     def __init__(
@@ -157,6 +161,7 @@ class AudioEncoder(nn.Module):
         hard: bool = False,
         sampler: str = "gumbel",
         learned_hc: bool = False,
+        pack_capacities: tuple | None = None,
     ):
         super().__init__()
         if sampler not in ("gumbel", "hard_concrete"):
@@ -168,6 +173,7 @@ class AudioEncoder(nn.Module):
         self.hard = hard
         self.sampler = sampler
         self.learned_hc = learned_hc
+        self.pack_capacities = tuple(pack_capacities) if pack_capacities is not None else None
         self.tables = tables
         self.sizes = tables.sizes
         self.total_simplices = tables.total_simplices
@@ -254,12 +260,29 @@ class AudioEncoder(nn.Module):
         y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator)
         return self.mlp2(y)  # [B, S_total]
 
-    def embed(self, probs: RectifiedProbs) -> tuple:
-        """Masked-static embeddings: LN(table_r) * prob_r, per rank."""
-        return tuple(
-            getattr(self, f"embed_norm{r}")(getattr(self, f"embed_rank{r}"))
-            * probs.ranks[r][..., None]
-            for r in range(4)
+    def embed(self, probs: RectifiedProbs, idx=(None,) * 4) -> tuple:
+        """Masked-static embeddings LN(table_r) * prob_r per rank; a packed
+        rank (``idx[r]`` its top-K indices [B, K]) takes LN(table_r)[idx]
+        times the gathered probabilities."""
+        out = []
+        for r in range(4):
+            table = getattr(self, f"embed_norm{r}")(getattr(self, f"embed_rank{r}"))
+            if idx[r] is None:
+                out.append(table * probs.ranks[r][..., None])
+            else:
+                out.append(table[idx[r]] * torch.gather(probs.ranks[r], -1, idx[r])[..., None])
+        return tuple(out)
+
+    def operators(self, rect: RectifiedProbs, masks: tuple):
+        """The operator set from the soft rectified probs and the output
+        masks: dense, or packed when ``pack_capacities`` is set, with the
+        select key mask + rect (every active row before every inactive
+        one)."""
+        if self.pack_capacities is None:
+            return build_operators(rect, self.tables, masks=masks)
+        return build_packed_operators(
+            rect, self.tables, self.pack_capacities, masks=masks,
+            select_key=tuple(m + p for m, p in zip(masks, rect.ranks)),
         )
 
     def _relax(self, biased, temperature, train, generator, noise, stretch) -> torch.Tensor:
@@ -335,8 +358,11 @@ class AudioEncoder(nn.Module):
         masks = tuple((p > 0).to(logits.dtype) for p in out_ranks.ranks)
         valid = out_ranks.vertices.sum(dim=-1) > 0
         # Embeddings and masks from the output probs, operators from the
-        # soft rectified probs (the same tensors when hard=False).
-        ops = build_operators(rect, self.tables, masks=masks)
+        # soft rectified probs (the same tensors when hard=False). Packed
+        # ranks carry packed embeddings and masks; probs, rectified and the
+        # losses stay in the full layout.
+        ops = self.operators(rect, masks)
+        embeddings = self.embed(out_ranks, ops.idx)
         if stretch is not None:
             beta, gamma, zeta = stretch
             l0 = hard_concrete_l0_penalty(biased, beta, HardConcreteParams(gamma, zeta)).mean(dim=-1)
@@ -346,11 +372,11 @@ class AudioEncoder(nn.Module):
             l0 = torch.zeros(logits.shape[:-1], dtype=logits.dtype, device=logits.device)
         return EncoderOutput(
             logits=logits,
-            embeddings=self.embed(out_ranks),
+            embeddings=embeddings,
             ops=ops,
             probs=out_ranks,
             rectified=rect,
-            masks=masks,
+            masks=ops.masks,
             valid=valid,
             l0=l0,
         )
@@ -396,8 +422,9 @@ def vertex_count_penalty(
 
 
 def rank_diversity_entropy(probs: RectifiedProbs) -> torch.Tensor:
-    """-0.1 * entropy of the mean activation across ranks, batched."""
-    acts = torch.stack([p.mean(dim=-1) for p in probs.ranks], dim=-1)  # [B, 4]
+    """-0.1 * entropy of the mean activation across ranks, batched; ranks
+    that ``max_rank`` truncation empties are left out."""
+    acts = torch.stack([p.mean(dim=-1) for p in probs.ranks if p.shape[-1] > 0], dim=-1)  # [B, <=4]
     dist = acts / (acts.sum(dim=-1, keepdim=True) + 1e-10)
     entropy = -(dist * torch.log(dist + 1e-10)).sum(dim=-1)
     return -0.1 * entropy

@@ -4,7 +4,7 @@ The JAX package draws its weights with flax's default initializers. The
 port draws from the same families (not the same numbers) with an explicit
 ``torch.Generator``: lecun-normal Dense/Conv/SCCN kernels (truncated
 normal, variance 1/fan_in), zero biases, unit norm scales, normal(1.0)
-embedding tables.
+embedding tables, orthogonal recurrent kernels.
 """
 
 from __future__ import annotations
@@ -26,6 +26,12 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> t
         return nn.init.trunc_normal_(
             t, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std, generator=generator
         )
+
+
+def orthogonal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax.linen.initializers.orthogonal: a random orthogonal matrix."""
+    with torch.no_grad():
+        return nn.init.orthogonal_(t, generator=generator)
 
 
 def init_standard_module(module: nn.Module, generator: torch.Generator) -> None:

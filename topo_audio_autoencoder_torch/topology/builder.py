@@ -9,14 +9,19 @@ static 0/1 membership matrix and the per-sample probability vector,
     A_0    @ X     = M_1^T @ (p_1 * (M_1 @ X)) - deg * X
 
 where M_r is the [S_r, S_{r-1}] face membership of rank r and p_r the
-rectified probabilities. The dense memberships are built once per
-(tables, dtype, device); at n=20 the largest, t2tt, is [4845, 1140]
-(22 MB in fp32).
+rectified probabilities. Each dense membership is built once per
+(tables, rank, dtype, device), and only when a product asks for it: at
+n=20 the largest, t2tt, is [4845, 1140] (22 MB in fp32), at n=32
+[35960, 4960] (713 MB), which the packed operators (``topology.packed``)
+never build.
+
+``adj0`` / ``inc1..3`` / ``adj_diag`` and ``dense_adjacency`` materialize
+the operators for tests and inspection.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -36,6 +41,12 @@ class SimplicialOperators(NamedTuple):
     probs: tuple
     masks: tuple
     memberships: tuple
+
+    @property
+    def idx(self) -> tuple:
+        """Per-rank packed-row indices, as ``PackedOperators.idx``: every
+        rank is dense here."""
+        return (None,) * 4
 
     def up(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """``inc_rank @ x``: [..., S_rank, C] -> [..., S_{rank-1}, C]."""
@@ -66,21 +77,82 @@ class SimplicialOperators(NamedTuple):
         p = self.probs[rank]
         return (p * p) * float(rank + 1)
 
+    # --------------------------------------------------- materializers
 
-@lru_cache(maxsize=16)
+    @property
+    def adj0(self) -> torch.Tensor:
+        m = self.memberships[0]
+        p = self.probs[1]
+        gram0 = torch.einsum("...ev,...eu->...vu", p[..., :, None] * m, m)
+        return gram0 * (1.0 - torch.eye(m.shape[-1], dtype=m.dtype, device=m.device))
+
+    def incidence(self, rank: int) -> torch.Tensor:
+        """Materialized ``inc_rank = M_rank^T * p_rank`` (tests only)."""
+        m = self.memberships[rank - 1]
+        p = self.probs[rank]
+        return (m * p[..., :, None]).transpose(-1, -2)
+
+    @property
+    def inc1(self) -> torch.Tensor:
+        return self.incidence(1)
+
+    @property
+    def inc2(self) -> torch.Tensor:
+        return self.incidence(2)
+
+    @property
+    def inc3(self) -> torch.Tensor:
+        return self.incidence(3)
+
+    @property
+    def adj_diag(self) -> tuple:
+        """Gram diagonals (d1 [E], d2 [T], d3 [Tt]): ranks 1-2 via shared
+        cofaces, the top rank via shared faces."""
+        return (
+            self.gram_diag(1, via_upper=True),
+            self.gram_diag(2, via_upper=True),
+            self.gram_diag(3, via_upper=False),
+        )
+
+
+# The dense memberships built so far, keyed by (n, sizes, rank, dtype,
+# device): tables with the same n and sizes hold the same matrices. The
+# least recently used one goes beyond _MAX_MEMBERSHIPS.
+_memberships: OrderedDict = OrderedDict()
+_MAX_MEMBERSHIPS = 48
+
+
+def membership_matrix(
+    tables: ComplexTables, rank: int, dtype: torch.dtype, device: torch.device
+) -> torch.Tensor:
+    """The dense [S_rank, S_{rank-1}] membership of rank ``rank`` (1..3),
+    built once per (tables, rank, dtype, device).
+
+    Built with inference mode off, so that a first call under
+    ``torch.inference_mode`` (the codec) does not cache a tensor that a
+    later training step could not save for backward."""
+    key = (tables.n, tables.sizes, rank, dtype, torch.device(device))
+    if key in _memberships:
+        _memberships.move_to_end(key)
+    else:
+        with torch.inference_mode(False):
+            _memberships[key] = torch.as_tensor(tables.membership(rank), dtype=dtype, device=device)
+        if len(_memberships) > _MAX_MEMBERSHIPS:
+            _memberships.popitem(last=False)
+    return _memberships[key]
+
+
+def built_memberships(n: int) -> list:
+    """The dense memberships held for complexes on ``n`` vertices, as
+    sorted (rank, device name) pairs."""
+    return sorted({(key[2], str(key[4])) for key in _memberships if key[0] == n})
+
+
 def membership_matrices(
     tables: ComplexTables, dtype: torch.dtype, device: torch.device
 ) -> tuple:
-    """v2e, e2t, t2tt as dense tensors, built once per (tables, dtype, device).
-
-    Built with inference mode off, so that a first call under
-    ``torch.inference_mode`` (the codec) does not cache tensors that a later
-    training step could not save for backward."""
-    with torch.inference_mode(False):
-        return tuple(
-            torch.as_tensor(m, dtype=dtype, device=device)
-            for m in (tables.v2e, tables.e2t, tables.t2tt)
-        )
+    """v2e, e2t, t2tt as dense tensors (``membership_matrix`` of ranks 1-3)."""
+    return tuple(membership_matrix(tables, r, dtype, device) for r in (1, 2, 3))
 
 
 def build_operators(
@@ -97,3 +169,44 @@ def build_operators(
     return SimplicialOperators(
         probs=tuple(probs.ranks), masks=tuple(masks), memberships=memberships
     )
+
+
+def same_rank_matmul(ops: SimplicialOperators, rank: int, x: torch.Tensor) -> torch.Tensor:
+    """``A_rank @ x`` without materializing A. x: [..., S_rank, C].
+
+    The convention is fixed whatever the truncation: ranks 1-2 connect via
+    shared cofaces, rank 3 via shared faces; a statically empty coface rank
+    gives A == 0 (the zero-size Gram product is zeros)."""
+    if rank == 0:
+        return ops.adj0_matmul(x)
+    if not 1 <= rank <= 3:
+        raise ValueError(f"rank must be in 0..3, got {rank}")
+    if rank < 3:
+        # A_r = inc_{r+1} @ inc_{r+1}^T - D
+        p = ops.probs[rank + 1]
+        m = ops.memberships[rank]  # [S_{r+1}, S_r]
+        gram_x = m.transpose(0, 1) @ ((p * p)[..., None] * (m @ x))
+        return gram_x - ops.gram_diag(rank, via_upper=True)[..., None] * x
+    # A_3 = inc_3^T @ inc_3 - D
+    p = ops.probs[rank]
+    m = ops.memberships[rank - 1]  # [S_r, S_{r-1}]
+    gram_x = p[..., None] * (m @ (m.transpose(0, 1) @ (p[..., None] * x)))
+    return gram_x - ops.gram_diag(rank, via_upper=False)[..., None] * x
+
+
+def dense_adjacency(ops: SimplicialOperators, rank: int) -> torch.Tensor:
+    """The dense adjacency of a rank (tests and inspection only), in the
+    conventions of ``same_rank_matmul``."""
+    if rank == 0:
+        return ops.adj0
+    if rank == 1:
+        inc, d = ops.inc2, ops.adj_diag[0]
+    elif rank == 2:
+        inc, d = ops.inc3, ops.adj_diag[1]
+    elif rank == 3:
+        inc, d = ops.inc3.transpose(-1, -2), ops.adj_diag[2]
+    else:
+        raise ValueError(f"rank must be in 0..3, got {rank}")
+    gram = inc @ inc.transpose(-1, -2)
+    eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
+    return gram - d[..., :, None] * eye
