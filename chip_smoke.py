@@ -111,9 +111,23 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 18. train_parity_jk, train_jk  the flagship step with the jumping-knowledge
             SCCN: one step card vs CPU (B=2), then 3 timed steps of B=16 x
             G=3.
-19. profiler  how many kernel profiles the run took, and which of them
+19. data     the data layer: a synthetic corpus of 1,024 + 16 notes; six
+            WAVs (16 kHz, 32 kHz, stereo) through preprocess_split, each
+            decoded by the native parser and held against scipy's decode;
+            compute_distances on the card over the 1,024 clips (tile 64,
+            five scales: 523,776 pairs; wall time, pairs/s, peak memory;
+            one tile pair under torch.profiler), 16 entries against
+            spectral_distance on the card and a 32-clip block against the
+            CPU, zero diagonal, symmetry, neighbor rows;
+            the contrastive dataset (G = 3, epoch 1) through batch_iterator
+            and prefetch_to_device into a warm-up and 3 timed flagship
+            train steps, counters as in train; index_iterator's rows
+            gathered on the card against batch_iterator's batch, bit for
+            bit; one eval step on held-out clips; the hybrid STFT against
+            fft on the card, value and gradient.
+20. profiler  how many kernel profiles the run took, and which of them
             recorded no device activity at first and were taken again.
-20. kernels  one line per kernel: route, source, launches (its train
+21. kernels  one line per kernel: route, source, launches (its train
             step; combine_diag's ladder for rows 8-10), error, times (at its
             train step's shape; the ladder's for rows 8-10). The samplers'
             backward kernels stand in the line under the JAX VJPs they
@@ -131,6 +145,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -318,6 +333,35 @@ BASELINE2_KEYS = 190
 # 6 layers' outputs, per simplex).
 JK_OPTIONS = dict(use_jumping_knowledge=True)
 JK_STEPS = 3
+# The data phase. The corpus: DataConfig.num_train_samples
+# (topo_audio_autoencoder_tpu/config.py:22) synthetic 4 s notes, the
+# reference's 1,024 files, and one held-out eval batch. The precompute: the
+# JAX package's tile of 64 (136 tile pairs, 523,776 distinct pairs) and its
+# five scales. The dataset: the flagship's group, anchor + positive + one
+# negative (G = 3), at epoch 1 of the curriculum.
+DATA_N = 1024
+DATA_TILE = 64
+DATA_STEPS = 3
+DATA_PAIRS_CHECKED = 16
+DATA_BLOCK = 32
+# A matrix entry against spectral_distance on the card, and a 32-clip
+# block against the same computation on the CPU: tests/test_data.py's
+# bound for an entry against the direct distance (rtol, atol).
+TOL_DIST = (1e-3, 1e-4)
+# WAV decode, native against scipy's load_wav: the same int16 / 32768 (and
+# two-channel mean) at 16 kHz; the 32 kHz file's linear 2:1 resample against
+# scipy's polyphase filter on a 440 + 1320 Hz tone, away from the first and
+# last WAV_EDGE samples (the filter's zero-padded edges); a 16 kHz file
+# against the float clip written, int16 quantization (|x| / 32768 + 2^-16).
+TOL_WAV_DECODE = 1e-6
+TOL_WAV_RESAMPLED = 1e-3
+WAV_EDGE = 100
+TOL_WAV_QUANT = 1e-4
+# spectral_distance with the hybrid STFT against fft on the card: the same
+# forward (value, relative); the backward is the DFT as matmuls, so the
+# gradient within the matmul method's bound, relative to its largest element
+# (tests/test_torch_losses.py: GRAD_RTOL).
+TOL_HYBRID = (1e-5, 1e-3)
 # The kernels a Gumbel step launches once each, beside the attention's.
 GUMBEL_EXPECT = {"binary_gumbel": 1, "binary_gumbel_bwd": 1}
 # The Hard Concrete kernels, forward and backward (rows 4 and 5).
@@ -1012,7 +1056,12 @@ def phase_train_kernels(torch, attention, model, state, step, batch, inputs="mai
 
 
 def phase_train_trace(torch, state, step, batch, what="one flagship train step (fp32, B=16, G=3)") -> None:
-    """Where one train step spends device time (torch.profiler): device
+    """Where one train step spends device time."""
+    trace_call(torch, lambda: step(state, batch, TEMPERATURE, SEED), what)
+
+
+def trace_call(torch, fn, what: str) -> None:
+    """Where one call of ``fn`` spends device time (torch.profiler): device
     busy share, top ops and kernels. Recorded, not checked."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1020,7 +1069,7 @@ def phase_train_trace(torch, state, step, batch, what="one flagship train step (
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, TEMPERATURE, SEED)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -2228,6 +2277,223 @@ def phase_baseline2(torch, port, counters) -> None:
     )
 
 
+def data_wavs(d: Path, corpus: np.ndarray) -> list:
+    """Six WAVs for preprocess_split: four 16 kHz mono clips of the corpus,
+    one 32 kHz tone (440 + 1320 Hz) and one 16 kHz stereo pair, int16."""
+    from scipy.io import wavfile
+    from topo_audio_autoencoder_torch import data
+
+    paths = []
+    for i in range(4):
+        paths.append(d / f"mono16k_{i}.wav")
+        data.save_wav(paths[-1], corpus[i], 16000)
+    t = np.arange(2 * NUM_SAMPLES) / 32000.0
+    paths.append(d / "tone32k.wav")
+    data.save_wav(paths[-1], 0.5 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1320 * t + 1.0), 32000)
+    paths.append(d / "stereo16k.wav")
+    wavfile.write(paths[-1], 16000, (np.stack([corpus[4], -0.5 * corpus[5]], 1) * 32767).astype(np.int16))
+    return paths
+
+
+def phase_data_wav(torch, data, native_loader, corpus, d: Path) -> None:
+    """WAVs through preprocess_split and load_split: every file decoded by
+    the native parser (the packed row equals load_wav_native's, bit for
+    bit), the result against scipy's load_wav within the stated bounds."""
+    paths = data_wavs(d, corpus)
+    t0 = time.perf_counter()
+    packed = data.preprocess_split(paths, d / "out", "wav", 16000, NUM_SAMPLES)
+    preprocess_s = time.perf_counter() - t0
+    loaded = data.load_split(d / "out", "wav")
+    check(isinstance(loaded, np.memmap) and np.array_equal(loaded, packed), "load_split differs from the packed array")
+    manifest = json.loads((d / "out" / "wav_manifest.json").read_text())
+    check(manifest == [p.stem for p in paths], f"manifest {manifest}")
+    errs = {}
+    for row, p in zip(packed, paths):
+        native = native_loader.load_wav_native(p, NUM_SAMPLES, 16000)
+        check(native is not None, f"the native parser refused {p.name}")
+        check(np.array_equal(row[: len(native)], native) and not row[len(native):].any(),
+              f"{p.name}: the packed row is not the native decode")
+        ref = data.load_wav(p)[:NUM_SAMPLES]
+        check(len(ref) == len(native), f"{p.name}: {len(native)} native samples against scipy's {len(ref)}")
+        if p.name.startswith("tone32k"):
+            err = float(np.abs(native - ref)[WAV_EDGE:-WAV_EDGE].max())
+            check(err <= TOL_WAV_RESAMPLED, f"{p.name}: resampled {err} from scipy's")
+        else:
+            err = float(np.abs(native - ref).max())
+            check(err <= TOL_WAV_DECODE, f"{p.name}: decoded {err} from scipy's")
+        errs[p.name] = err
+    quant = float(np.abs(packed[:4] - corpus[:4]).max())
+    check(quant <= TOL_WAV_QUANT, f"16 kHz clips {quant} from the float clips written")
+    emit("data_wav", files=[p.name for p in paths], native_decoded=len(paths), preprocess_s=preprocess_s,
+         max_abs_err_vs_scipy=errs, tol_decode=TOL_WAV_DECODE, tol_resampled=TOL_WAV_RESAMPLED,
+         resampled_edge_excluded=WAV_EDGE, quantization_err=quant, tol_quant=TOL_WAV_QUANT)
+
+
+def phase_data_precompute(torch, data, stft, train: np.ndarray, d: Path) -> dict:
+    """compute_distances on the card over the corpus: wall time, pairs/s,
+    peak memory; entries against spectral_distance on the card, a block
+    against the CPU, the diagonal, the mirror and every neighbor row."""
+    n = len(train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dists = data.compute_distances(train, save_path=d / "distances.npz", tile=DATA_TILE)
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    mat, nb = dists["distances"], dists["neighbors"]
+    pairs = n * (n - 1) // 2
+    tiles = -(-n // DATA_TILE)
+    check(mat.shape == (n, n) and bool(np.isfinite(mat).all()), f"distance matrix {mat.shape}, not finite")
+    check(bool((np.diag(mat) == 0).all()), "the diagonal is not zero")
+    check(np.array_equal(mat, mat.T), "the matrix is not symmetric")
+    expect = np.broadcast_to(np.arange(n), (n, n))[~np.eye(n, dtype=bool)].reshape(n, n - 1)
+    check(nb.shape == (n, n - 1) and np.array_equal(np.sort(nb, axis=1), expect),
+          "a neighbor row is not a permutation of the other rows")
+    t0 = time.perf_counter()
+    check(np.array_equal(data.sort_neighbors(mat), nb), "neighbors differ from sort_neighbors(distances)")
+    sort_s = time.perf_counter() - t0
+    loaded = data.load_distances(d / "distances.npz")
+    check(all(np.array_equal(loaded[k], dists[k]) for k in dists), "the .npz does not load back")
+
+    tile_pair = [torch.from_numpy(train[k * DATA_TILE:(k + 1) * DATA_TILE]).to(DEVICE) for k in (0, 1)]
+    with torch.no_grad():
+        trace_call(torch, lambda: stft.spectral_distance_matrix_block(*tile_pair),
+                   f"one {DATA_TILE} x {DATA_TILE} tile pair of the precompute (five scales)")
+    rng = np.random.default_rng(SEED + 12)
+    i = rng.integers(0, n, DATA_PAIRS_CHECKED)
+    j = (i + rng.integers(1, n, DATA_PAIRS_CHECKED)) % n
+    i, j = np.minimum(i, j), np.maximum(i, j)  # d(i, j) with i < j is the reference for both entries
+    with torch.no_grad():
+        direct = stft.spectral_distance(torch.from_numpy(train[i]).to(DEVICE),
+                                        torch.from_numpy(train[j]).to(DEVICE)).cpu().numpy()
+        block_cpu = stft.spectral_distance_matrix_block(
+            torch.from_numpy(train[:DATA_BLOCK]), torch.from_numpy(train[DATA_BLOCK:2 * DATA_BLOCK])).numpy()
+    rtol, atol = TOL_DIST
+    got = mat[i, j]
+    entry_err = float(np.abs(got - direct).max())
+    check(bool(np.all(np.abs(got - direct) <= atol + rtol * np.abs(direct))),
+          f"entries against spectral_distance: max abs err {entry_err}")
+    block = mat[:DATA_BLOCK, DATA_BLOCK:2 * DATA_BLOCK]
+    block_err = float(np.abs(block - block_cpu).max())
+    check(bool(np.all(np.abs(block - block_cpu) <= atol + rtol * np.abs(block_cpu))),
+          f"a {DATA_BLOCK}-clip block against the CPU: max abs err {block_err}")
+    emit("data_precompute", clips=n, samples=train.shape[1], tile=DATA_TILE,
+         tile_pairs=tiles * (tiles + 1) // 2, pairs=pairs, wall_s=wall_s, pairs_per_s=pairs / wall_s,
+         peak_mem_gib=peak_gib, sort_s=sort_s, entries_checked=DATA_PAIRS_CHECKED,
+         entry_max_abs_err=entry_err, entry_max_rel_err=float((np.abs(got - direct) / np.abs(direct)).max()),
+         block=DATA_BLOCK, block_max_abs_err=block_err,
+         block_max_rel_err=float((np.abs(block - block_cpu) / np.abs(block_cpu)).max()), tol=TOL_DIST,
+         distance_range=[float(mat[~np.eye(n, dtype=bool)].min()), float(mat.max())])
+    return dists
+
+
+def phase_data_train(torch, port, data, counters, train: np.ndarray, held_out: np.ndarray, neighbors) -> None:
+    """The contrastive dataset at G = 3, epoch 1, through batch_iterator and
+    prefetch_to_device into a warm-up and DATA_STEPS timed flagship train
+    steps (fp32), counters as the train phase; index_iterator's rows
+    gathered on the card equal batch_iterator's first batch; one eval step
+    on held-out clips."""
+    ds = data.NSynthDataset(train, neighbors, train=True, config=data.ContrastiveConfig(num_negative_samples=1),
+                            seed=SEED)
+    ds.set_epoch(1)
+    check(ds.group_size == TRAIN_G, f"group size {ds.group_size}")
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED, device=DEVICE)
+    opt = port.make_optimizer(accumulate_grad_batches=1)
+    state = port.create_train_state(model, opt)
+    step = port.make_train_step(model, opt)
+    fetch_ms, seen = [], []
+
+    def fed():
+        it = data.prefetch_to_device(data.batch_iterator(ds, TRAIN_B, seed=SEED, epoch=1), size=2)
+        try:
+            for _ in range(DATA_STEPS + 1):
+                t0 = time.perf_counter()
+                batch = next(it)
+                fetch_ms.append((time.perf_counter() - t0) * 1e3)
+                seen.append(batch)
+                yield batch
+        finally:
+            it.close()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, times, components, launches = timed_steps(torch, step, state, fed(), counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = DATA_STEPS + 1
+    check(len(times) == steps, f"{len(times)} data-fed steps ran, not {steps}")
+    check(all(b.shape == (TRAIN_B, TRAIN_G, 1, NUM_SAMPLES) and b.device.type == "cuda"
+              and b.dtype == torch.float32 for b in seen), f"batches {[tuple(b.shape) for b in seen]}")
+    for name in ("binary_gumbel", "binary_gumbel_bwd", "masked_attention_fwd"):
+        check(launches[name] == steps, f"data: {name} launched {launches[name]} times in {steps} steps")
+    check(launches["masked_attention_bwd"] >= steps, f"data: attention bwd launches {launches} for {steps} steps")
+    check(all(launches[k] == 0 for k in (*HC_KERNELS, *COMBINE_KERNELS)), f"data: other kernels launched {launches}")
+
+    corpus_dev = torch.from_numpy(train).to(DEVICE)
+    idx = next(data.index_iterator(ds, TRAIN_B, seed=SEED, epoch=1))
+    gathered = corpus_dev[torch.from_numpy(idx).to(DEVICE).long()][:, :, None, :]
+    check(torch.equal(gathered, seen[0]), "index_iterator's rows gathered on the card differ from batch_iterator's")
+
+    eval_ds = data.NSynthDataset(held_out, train=False)
+    eval_batch = next(data.prefetch_to_device(data.batch_iterator(eval_ds, TRAIN_B, shuffle=False)))
+    check(eval_batch.shape == (TRAIN_B, 1, NUM_SAMPLES), f"eval batch {tuple(eval_batch.shape)}")
+    total, eval_components = port.make_eval_step(model)(eval_batch)
+    eval_values = {k: torch.as_tensor(v).detach().cpu() for k, v in eval_components.items()}
+    check(math.isfinite(float(total)) and all(bool(torch.isfinite(v).all()) for v in eval_values.values()),
+          f"eval step: non-finite loss {float(total)}")
+    step_ms = statistics.median(times[1:])
+    emit("data_train", config=FLAGSHIP, anchors=TRAIN_B, group=TRAIN_G, epoch=1,
+         negative_offset=ds.current_negative_offset, steps_timed=DATA_STEPS, step_ms=times,
+         step_ms_median=step_ms, step_ms_spread=[min(times[1:]), max(times[1:])],
+         anchors_per_s=TRAIN_B / (step_ms / 1e3), fetch_ms=fetch_ms, components=components,
+         launches=launches, peak_mem_gib=peak_gib, index_gather_equal=True,
+         eval_total=float(total), eval_components={k: v.tolist() for k, v in eval_values.items()})
+
+
+def phase_data_hybrid(torch, stft, train: np.ndarray) -> None:
+    """spectral_distance with the hybrid STFT against fft on the card, on
+    two flagship clips against two others: value and gradient, and each
+    method's forward + backward time."""
+    x = torch.from_numpy(train[:2]).to(DEVICE)
+    y = torch.from_numpy(train[2:4]).to(DEVICE)
+
+    def run(method):
+        xr = x.clone().requires_grad_(True)
+        dist = stft.spectral_distance(xr, y, method=method)
+        dist.sum().backward()
+        return dist.detach(), xr.grad
+
+    (v_fft, g_fft), (v_hyb, g_hyb) = run("fft"), run("hybrid")
+    value_err = float(((v_hyb - v_fft).abs() / v_fft.abs()).max())
+    grad_err = float((g_hyb - g_fft).abs().max() / g_fft.abs().max())
+    check(value_err <= TOL_HYBRID[0], f"hybrid value {value_err} from fft's")
+    check(grad_err <= TOL_HYBRID[1], f"hybrid gradient {grad_err} of the largest element from fft's")
+    emit("data_hybrid", clips=2, samples=NUM_SAMPLES, value_rel_err=value_err, grad_rel_err=grad_err,
+         tol=TOL_HYBRID, fft_fwd_bwd_ms=time_ms(lambda: run("fft"), reps=10, warmup=2),
+         hybrid_fwd_bwd_ms=time_ms(lambda: run("hybrid"), reps=10, warmup=2))
+
+
+def phase_data(torch, port, counters) -> None:
+    """The data layer on the card: a synthetic corpus, WAVs through the
+    native decoder, the distance precompute, the contrastive dataset into
+    flagship train steps and an eval step, and the hybrid STFT."""
+    from topo_audio_autoencoder_torch import data
+    from topo_audio_autoencoder_torch.data import native_loader
+    from topo_audio_autoencoder_torch.ops import stft
+
+    t0 = time.perf_counter()
+    corpus = data.synth_corpus(DATA_N + TRAIN_B, NUM_SAMPLES, seed=SEED)
+    emit("data_corpus", clips=len(corpus), train=DATA_N, held_out=TRAIN_B, samples=NUM_SAMPLES,
+         synth_s=time.perf_counter() - t0, native_library=str(native_loader.get_lib()._name))
+    train, held_out = corpus[:DATA_N], corpus[DATA_N:]
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_data_wav(torch, data, native_loader, corpus, Path(tmp))
+        dists = phase_data_precompute(torch, data, stft, train, Path(tmp))
+    torch.cuda.empty_cache()
+    phase_data_train(torch, port, data, counters, train, held_out, dists["neighbors"])
+    torch.cuda.empty_cache()
+    phase_data_hybrid(torch, stft, train)
+
+
 def kernel_entry(name, source, replaces, launches, result) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2339,6 +2605,8 @@ def main() -> int:
         phase_train_parity(torch, port, training, "train_parity_jk", JK_OPTIONS)
         phase_train_model(torch, port, counters, "train_jk", JK_OPTIONS, TRAIN_B, TRAIN_G, JK_STEPS,
                           training.LossWeights(), GUMBEL_EXPECT)
+        torch.cuda.empty_cache()
+        phase_data(torch, port, counters)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

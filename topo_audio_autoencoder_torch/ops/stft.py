@@ -1,7 +1,8 @@
 """Multiscale magnitude STFT and the spectral distance of the training loss.
 
 Port of ``topo_audio_autoencoder_tpu.ops.stft`` (``frame_signal``,
-``stft_magnitude``, ``multiscale_stft``, ``spectral_distance``).
+``stft_magnitude``, ``multiscale_stft``, ``spectral_distance``,
+``spectral_distance_matrix_block``).
 Conventions, as in the JAX package:
 
 - centered frames: reflect-pad n_fft//2 on both sides,
@@ -9,10 +10,11 @@ Conventions, as in the JAX package:
   static slices (no gather),
 - magnitudes divided by sqrt(n_fft).
 
-Two methods compute the magnitudes: ``fft`` (``torch.fft.rfft``) and
+Three methods compute the magnitudes: ``fft`` (``torch.fft.rfft``),
 ``matmul`` (the windowed real DFT as two matrix products, the JAX
-package's choice on a TPU). ``auto`` takes ``fft`` on every device, as the
-JAX package does off the TPU.
+package's choice on a TPU) and ``hybrid`` (an rfft forward whose backward
+is two matrix products against the unwindowed DFT basis). ``auto`` takes
+``fft`` on every device, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -57,6 +59,40 @@ def _windowed_dft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
+@lru_cache(maxsize=16)
+def _dft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Unwindowed real-DFT basis [n_fft, n_fft//2+1] (cos, -sin)."""
+    k = np.arange(n_fft // 2 + 1)
+    t = np.arange(n_fft)
+    ang = 2.0 * np.pi * np.outer(t, k) / n_fft
+    return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
+
+
+class _MagHybrid(torch.autograd.Function):
+    """|rfft(fw)| / sqrt(n), in fw's dtype, with a backward of two matrix
+    products against the DFT basis:
+        d|S|/dfw = (re * ct) @ C^T + (im * ct) @ S^T, scaled by 1/sqrt(n),
+    where (re, im) is the unit phase (re, im) / (|S| + 1e-24) saved by the
+    forward (the JAX package's ``_mag_hybrid``)."""
+
+    @staticmethod
+    def forward(ctx, fw: torch.Tensor, n_fft: int) -> torch.Tensor:
+        spec = torch.fft.rfft(fw.to(torch.float32), dim=-1)
+        mag_un = spec.abs()
+        inv = 1.0 / (mag_un + 1e-24)
+        ctx.save_for_backward(spec.real * inv, spec.imag * inv)
+        ctx.n_fft = n_fft
+        return (mag_un / math.sqrt(n_fft)).to(fw.dtype)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        re_u, im_u = ctx.saved_tensors
+        cos_b, nsin_b = (torch.from_numpy(m).to(ct.device) for m in _dft_matrices(ctx.n_fft))
+        ctf = ct.to(torch.float32) * (1.0 / math.sqrt(ctx.n_fft))
+        g = (ctf * re_u) @ cos_b.T + (ctf * im_u) @ nsin_b.T
+        return g.to(ct.dtype), None
+
+
 def _reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Reflect-pad the last axis of [..., T] (torch's reflect mode wants a
     3-d input, and a pad shorter than T)."""
@@ -90,9 +126,11 @@ def stft_magnitude(
         im = f32 @ nsin_b
         mag = torch.sqrt(re * re + im * im + 1e-24)
         return (mag / math.sqrt(n_fft)).to(frames.dtype)
-    if method != "fft":
-        raise ValueError(f"method must be 'auto', 'fft' or 'matmul', not {method!r}")
+    if method not in ("fft", "hybrid"):
+        raise ValueError(f"method must be 'auto', 'fft', 'matmul' or 'hybrid', not {method!r}")
     window = torch.from_numpy(np.hanning(n_fft + 1)[:-1]).to(frames.device, x.dtype)
+    if method == "hybrid":
+        return _MagHybrid.apply(frames * window, n_fft)
     spec = torch.fft.rfft(frames * window, dim=-1)
     return spec.abs() / math.sqrt(n_fft)
 
@@ -133,3 +171,40 @@ def spectral_distance(
         )
         dist = dist + lin + log
     return dist
+
+
+def spectral_distance_matrix_block(xs: torch.Tensor, ys: torch.Tensor, scales=DEFAULT_SCALES) -> torch.Tensor:
+    """Pairwise spectral distances between two stacks of waveforms.
+
+    xs: [A, T], ys: [B, T] -> [A, B], entry (a, b) the ``spectral_distance``
+    of xs[a] (the reference) and ys[b]. Each stack's multiscale STFT is
+    computed once here. Per scale:
+    - the relative-L2 term expands to ||x||² + ||y||² - 2<x, y>, one
+      [A, FK] @ [FK, B] product, clamped at 0;
+    - the L1 log term cannot factor through a product, so it runs over
+      chunks of 8,192 of the flattened F*K axis, both sides zero-padded to
+      a whole chunk (a padded position adds |0 - 0|): each chunk
+      broadcasts [A, B, 8192] and adds into the [A, B] result.
+    """
+    xs = xs.to(torch.float32)
+    ys = ys.to(torch.float32)
+    out = 0.0
+    chunk = 8192
+    for s in scales:
+        fx = stft_magnitude(xs, s).reshape(xs.shape[0], -1)  # [A, FK]
+        fy = stft_magnitude(ys, s).reshape(ys.shape[0], -1)  # [B, FK]
+        n_elem = fx.shape[-1]
+        x2 = (fx * fx).sum(-1)
+        y2 = (fy * fy).sum(-1)
+        sq = torch.clamp(x2[:, None] + y2[None, :] - 2.0 * (fx @ fy.T), min=0.0)
+        lin = (sq / n_elem) / (x2[:, None] / n_elem + 1e-7)
+
+        pad = (-n_elem) % chunk
+        lx = F.pad(torch.log(fx + 1e-7), (0, pad))
+        ly = F.pad(torch.log(fy + 1e-7), (0, pad))
+        log_sum = torch.zeros(fx.shape[0], fy.shape[0], dtype=torch.float32, device=fx.device)
+        for c0 in range(0, lx.shape[-1], chunk):
+            cx, cy = lx[:, c0 : c0 + chunk], ly[:, c0 : c0 + chunk]
+            log_sum += (cx[:, None, :] - cy[None, :, :]).abs().sum(-1)
+        out = out + lin + log_sum / n_elem
+    return out
