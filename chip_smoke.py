@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec and train step on one CUDA card and hold
-its kernels against their plain versions.
+"""Drive the PyTorch port's codec, train step and trainer on one CUDA card
+and hold its kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -125,13 +125,36 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             gathered on the card against batch_iterator's batch, bit for
             bit; one eval step on held-out clips; the hybrid STFT against
             fft on the card, value and gradient.
-20. profiler  how many kernel profiles the run took, and which of them
+20. trainer_main  the port's main() in-process at the flagship width
+            (main's defaults: G = 12, batch 4, accumulation 4, fp32) on a
+            synthetic corpus of 64 + 12 notes: the precompute, a 2 x 1 x 1
+            grid tuned one epoch a combo, 2 epochs with validation,
+            checkpoints (best, latest, epoch_0, best_tuning, the combos'),
+            train_log.jsonl and sample dumps, then train.resume=true to 3
+            epochs (one more, no rotation). The files, their sidecars'
+            keys, finite losses, and rows 1-3 once a trainer step (row 1
+            also once an eval forward), counters zeroed just before each
+            run and read just after; step ms (CUDA events around each
+            step, no added synchronisation), epoch and validate s, sync and
+            async checkpoint writes (s, MB), the waits for an async save,
+            peak memory.
+21. trainer_resume  Trainer.train() for 3 epochs against 2 epochs, a new
+            model and trainer, and train(resume=True) to 3, on 28 + 4
+            clips, cuDNN deterministic: losses, best epoch, every parameter
+            and moment equal bit for bit.
+22. epoch_b128  BASELINE config 4: the precompute of 2,048 synthetic clips
+            (tile 64), then one warm-up step and Trainer.train_epoch at
+            B = 128 x G = 6, bf16, on the device corpus (16 steps): clips/s
+            over the epoch's wall (ended by its loss copy), peak memory,
+            launches a step, one step under torch.profiler.
+23. profiler  how many kernel profiles the run took, and which of them
             recorded no device activity at first and were taken again.
-21. kernels  one line per kernel: route, source, launches (its train
-            step; combine_diag's ladder for rows 8-10), error, times (at its
-            train step's shape; the ladder's for rows 8-10). The samplers'
-            backward kernels stand in the line under the JAX VJPs they
-            replace (_bg_bwd, _hc_bwd, _hcl_bwd).
+24. kernels  one line per kernel: route, source, launches (rows 1, 2, 3
+            and 3's backward: trainer_main's first run; the others their
+            train step; combine_diag's ladder for rows 8-10), error, times
+            (at its train step's shape; the ladder's for rows 8-10). The
+            samplers' backward kernels stand in the line under the JAX VJPs
+            they replace (_bg_bwd, _hc_bwd, _hcl_bwd).
 
 Then the nvidia-smi line and, last, {"ok": true, "device": ...}. Any failed
 check exits non-zero before the last line. Without a card it exits 2.
@@ -362,6 +385,27 @@ TOL_WAV_QUANT = 1e-4
 # gradient within the matmul method's bound, relative to its largest element
 # (tests/test_torch_losses.py: GRAD_RTOL).
 TOL_HYBRID = (1e-5, 1e-3)
+# The training shell. trainer_main: main()'s defaults (the flagship,
+# ContrastiveConfig's G = 12, batch 4, accumulation 4, fp32) on a synthetic
+# corpus of DataConfig.num_train_samples = 64 (+ val_ratio 0.2: 76 clips,
+# 63 train and 13 val), a 2 x 1 x 1 grid tuned one epoch a combo, then 2
+# epochs, then one more by train.resume=true.
+TRAINER_N = 64
+TRAINER_ARGS = {
+    "data.num_train_samples": TRAINER_N, "data.clip_samples": NUM_SAMPLES, "train.max_epochs": 2,
+    "run_tuning": "true", "train.tuning_epochs": 1, "grid.encoder_lr": "0.001,0.0005",
+    "grid.decoder_lr": "0.0001", "grid.complexity_penalty": "0.1",
+}
+TRAINER_TRAIN, TRAINER_VAL = 63, 13  # main's split of the 76 clips
+TRAINER_BATCHES = TRAINER_TRAIN // 4, -(-TRAINER_VAL // 4)  # steps an epoch, batches a validate
+# trainer_resume: 32 clips (28 train: 7 steps an epoch, so accumulation 4
+# leaves a part-filled accumulator in the epoch-2 checkpoint; 4 val), an
+# uninterrupted 3-epoch run against one killed after 2 and resumed.
+RESUME_TRAIN, RESUME_VAL, RESUME_EPOCHS = 28, 4, 3
+# epoch_b128: BASELINE config 4 (benchmarks/run_all.py:190-246): 2,048
+# synthetic clips, the precompute at tile 64, 4 negatives (G = 6), B = 128,
+# bf16, no accumulation, the device corpus; one warm-up step, then one epoch.
+B128_N, B128_B, B128_NEGATIVES = 2048, 128, 4
 # The kernels a Gumbel step launches once each, beside the attention's.
 GUMBEL_EXPECT = {"binary_gumbel": 1, "binary_gumbel_bwd": 1}
 # The Hard Concrete kernels, forward and backward (rows 4 and 5).
@@ -1060,9 +1104,10 @@ def phase_train_trace(torch, state, step, batch, what="one flagship train step (
     trace_call(torch, lambda: step(state, batch, TEMPERATURE, SEED), what)
 
 
-def trace_call(torch, fn, what: str) -> None:
+def trace_call(torch, fn, what: str) -> dict:
     """Where one call of ``fn`` spends device time (torch.profiler): device
-    busy share, top ops and kernels. Recorded, not checked."""
+    busy share, top ops and kernels. Recorded, not checked; returns the
+    wall, device time, launches and busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1082,13 +1127,16 @@ def trace_call(torch, fn, what: str) -> None:
         (e for e in events if e.key.startswith("aten::") and e.device_time_total > 0),
         key=lambda e: -e.device_time_total,
     )
-    emit(
-        "trace", what=f"{what} under torch.profiler",
+    fields = dict(
         wall_ms_profiled=wall_ms, device_ms=device_ms, kernel_launches=sum(e.count for e in kernels),
         device_busy_share_profiled=device_ms / wall_ms,
+    )
+    emit(
+        "trace", what=f"{what} under torch.profiler", **fields,
         top_ops=[(e.key, e.device_time_total / 1e3, e.count) for e in ops[:15]],
         top_kernels=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in kernels[:15]],
     )
+    return fields
 
 
 def surrogate(torch, model, batch, noise, w, hard_noise=None):
@@ -2494,12 +2542,345 @@ def phase_data(torch, port, counters) -> None:
     phase_data_hybrid(torch, stft, train)
 
 
+class TrainerProbe:
+    """Times the trainer's parts from outside while a run goes through
+    its entry points, adding no synchronisation to its loop: each step
+    between two CUDA events recorded on the stream before and after it
+    (read after the run), each epoch and each validate on the host clock
+    (an epoch ends with its one loss copy, a validate with its per-clip
+    copy), each checkpoint call (a sync save whole; an async one until
+    the thread starts), each write of CheckpointManager.save (whichever
+    thread runs it) with its file's size, and each wait in
+    finish_checkpoints for an async save still in flight."""
+
+    def __init__(self, torch):
+        from topo_audio_autoencoder_torch.training import checkpoint, trainer
+
+        self.torch = torch
+        self.targets = [(trainer.Trainer, name) for name in
+                        ("_build", "train_epoch", "validate", "save_checkpoint", "finish_checkpoints")]
+        self.targets.append((checkpoint.CheckpointManager, "save"))
+        self.steps, self.epochs, self.validates, self.calls, self.writes, self.waits = [], [], [], [], [], []
+
+    def __enter__(self):
+        import threading
+
+        torch, probe = self.torch, self
+        self.saved = [(cls, name, getattr(cls, name)) for cls, name in self.targets]
+        orig = {name: fn for _, name, fn in self.saved}
+
+        def timed_build(self, *a, **k):
+            orig["_build"](self, *a, **k)
+            inner = self.train_step
+
+            def step(*args):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inner(*args)
+                end.record()
+                probe.steps.append((start, end))
+                return out
+
+            self.train_step = step
+
+        def timed(record, fn, what=None):
+            def run(self, *a, **k):
+                t0 = time.perf_counter()
+                out = fn(self, *a, **k)
+                record.append({"s": time.perf_counter() - t0, **(what(self, a, k) if what else {})})
+                return out
+            return run
+
+        def write_info(self, a, k):
+            path = self._path(a[0]) / "state.pt"
+            return {"name": a[0], "mb": path.stat().st_size / 1e6, "thread": threading.current_thread().name}
+
+        def call_info(self, a, k):
+            return {"names": a[0] if isinstance(a[0], str) else list(a[0]), "block": k.get("block", True)}
+
+        def wait(self):
+            t0, busy = time.perf_counter(), self._ckpt_thread is not None
+            orig["finish_checkpoints"](self)
+            if busy:
+                probe.waits.append(time.perf_counter() - t0)
+
+        patched = {
+            "_build": timed_build, "train_epoch": timed(self.epochs, orig["train_epoch"]),
+            "validate": timed(self.validates, orig["validate"]),
+            "save_checkpoint": timed(self.calls, orig["save_checkpoint"], call_info), "finish_checkpoints": wait,
+            "save": timed(self.writes, orig["save"], write_info),
+        }
+        for cls, name, _ in self.saved:
+            setattr(cls, name, patched[name])
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+    def summary(self) -> dict:
+        self.torch.cuda.synchronize()
+        step_ms = [s.elapsed_time(e) for s, e in self.steps]
+        sync = [w for w in self.writes if w["thread"] == "MainThread"]
+        async_writes = [w for w in self.writes if w["thread"] != "MainThread"]
+        return dict(
+            timed_steps=len(step_ms), step_ms_median=statistics.median(step_ms),
+            step_ms_spread=[min(step_ms), max(step_ms)],
+            epoch_s=[e["s"] for e in self.epochs], validate_s=[v["s"] for v in self.validates],
+            sync_save=dict(writes=len(sync), s_median=statistics.median(w["s"] for w in sync),
+                           mb=sync[0]["mb"]) if sync else None,
+            async_save=dict(calls=[c for c in self.calls if not c["block"]],
+                            writes=[{k: w[k] for k in ("name", "s", "mb")} for w in async_writes],
+                            finish_waits_s=self.waits),
+        )
+
+
+def main_args(d: Path, **over) -> list:
+    """main()'s command line for a run under ``d``; data.data_path names an
+    empty directory, so main makes the synthetic corpus."""
+    (d / "nodata").mkdir(parents=True, exist_ok=True)
+    args = {"data.data_path": d / "nodata", "data.output_dir": d / "out",
+            "data.precomputed_path": d / "pre" / "distances.npz", "train.checkpoint_dir": d / "ckpt",
+            **TRAINER_ARGS, **over}
+    return [f"{k}={v}" for k, v in args.items()]
+
+
+def trainer_launch_check(what: str, launches: dict, steps: int, eval_calls: int) -> None:
+    """Rows 2, 3 and 3's backward once a trainer step; row 1 once a step
+    and once an eval forward (each validate batch, each dump); no other
+    sampler or combine kernel."""
+    want = {"masked_attention_fwd": steps + eval_calls, "masked_attention_bwd": steps,
+            "binary_gumbel": steps, "binary_gumbel_bwd": steps}
+    for name, n in want.items():
+        check(launches[name] == n, f"{what}: {name} launched {launches[name]} times, not {n} "
+                                   f"({steps} steps, {eval_calls} eval forwards)")
+    check(all(launches[k] == 0 for k in (*HC_KERNELS, *COMBINE_KERNELS)), f"{what}: other kernels {launches}")
+
+
+def phase_trainer_main(torch, port, counters) -> dict:
+    """``main`` in-process at the flagship width: a synthetic corpus, the
+    precompute, the 2 x 1 x 1 grid tuned one epoch a combo, 2 epochs with
+    validation, checkpoints, the log and dumps; then ``train.resume=true``
+    to 3 epochs. Checks the files, the losses and rows 1-3 per step."""
+    from topo_audio_autoencoder_torch import main as port_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ckpt = d / "ckpt"
+        for c in counters.values():
+            c.launches = 0  # just before the main path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with TrainerProbe(torch) as probe:
+            port_main.main(main_args(d))
+        wall_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}  # just after
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        metrics = json.loads((ckpt / "metrics.json").read_text())
+        steps = len(metrics["iteration_losses"])
+        dumps = sorted(ckpt.glob("samples/*/metadata_*.json"))
+        check(steps == 4 * TRAINER_BATCHES[0], f"trainer_main: {steps} steps in 2 tuning and 2 main epochs")
+        trainer_launch_check("trainer_main", launches, steps, len(probe.validates) * TRAINER_BATCHES[1] + len(dumps))
+        losses = metrics["iteration_losses"] + metrics["train_losses"] + metrics["val_losses"]
+        check(len(metrics["train_losses"]) == 2 and all(math.isfinite(v) for v in losses),
+              f"trainer_main: losses {metrics['train_losses']}, {metrics['val_losses']}")
+        for name in ("best", "latest", "epoch_0", "best_tuning", "e0.001_d0.0001_c0.1/epoch_0",
+                     "e0.0005_d0.0001_c0.1/epoch_0"):
+            check((ckpt / name / "state.pt").exists(), f"trainer_main: no checkpoint {name}")
+        for name in ("best", "latest", "epoch_0"):
+            extra = json.loads((ckpt / f"{name}.extra.json").read_text())
+            check(set(extra) == {"encoder_lr", "decoder_lr", "complexity_penalty", "model", "train_state"}
+                  and set(extra["train_state"]) == {"epoch", "metrics", "dataset_epoch", "rng_key"}
+                  and [extra["model"][k] for k in ("vertices", "hidden", "layers")]
+                  == [FLAGSHIP[k] for k in ("num_vertices", "sccn_hidden_dim", "n_sccn_layers")],
+                  f"trainer_main: sidecar {name}: {sorted(extra)}")
+        check(set(json.loads((ckpt / "best_tuning.extra.json").read_text())) ==
+              {"encoder_lr", "decoder_lr", "complexity_penalty", "model"}, "trainer_main: best_tuning sidecar")
+        log = [json.loads(x) for x in (ckpt / "train_log.jsonl").read_text().splitlines()]
+        check(log and all("grad_norms" in r and math.isfinite(r["total_loss"]) for r in log),
+              "trainer_main: train_log.jsonl without grad norms or finite losses")
+        first = ckpt / "samples" / "epoch_0_iter_0"
+        check(sorted(x.name for x in first.iterdir()) == ["input_0.wav", "metadata_0.json", "output_0.wav"],
+              f"trainer_main: samples dump {sorted(x.name for x in first.iterdir())}")
+        run = probe.summary()
+
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with TrainerProbe(torch) as probe2:
+            port_main.main(main_args(d, **{"train.resume": "true", "train.max_epochs": 3}))
+        resume_s = time.perf_counter() - t0
+        launches2 = {name: c.launches for name, c in counters.items()}
+        m3 = json.loads((ckpt / "metrics.json").read_text())
+        steps2 = len(m3["iteration_losses"]) - steps
+        dumps2 = len(list(ckpt.glob("samples/*/metadata_*.json"))) - len(dumps)
+        check(len(m3["train_losses"]) == 3 and m3["train_losses"][:2] == metrics["train_losses"]
+              and len(probe2.epochs) == 1 and steps2 == TRAINER_BATCHES[0], f"trainer_main resume: {m3['train_losses']}")
+        check(not (d / "ckpt_old").exists() and (ckpt / "best_tuning").exists(), "trainer_main: resume rotated")
+        trainer_launch_check("trainer_main resume", launches2, steps2, len(probe2.validates) * TRAINER_BATCHES[1] + dumps2)
+        emit("trainer_main", config=FLAGSHIP, args=TRAINER_ARGS, batch=4, group=12, accumulate=4, dtype="float32",
+             wall_s=wall_s, steps=steps, launches=launches, peak_mem_gib=peak_gib, **run,
+             train_losses=metrics["train_losses"], val_losses=metrics["val_losses"],
+             best_params=metrics["best_params"], best_epoch=metrics["best_epoch"],
+             dumps=len(dumps), log_records=len(log),
+             resume=dict(wall_s=resume_s, steps=steps2, launches=launches2, train_losses=m3["train_losses"],
+                         val_losses=m3["val_losses"], **probe2.summary()))
+    return launches
+
+
+def phase_trainer_resume(torch, port, counters) -> None:
+    """Trainer.train() for 3 epochs uninterrupted against 2 epochs, a
+    fresh model and trainer (as a new process would build them), and
+    train(resume=True) to 3, cuDNN deterministic: every loss, the best
+    epoch, every parameter and moment equal bit for bit."""
+    from topo_audio_autoencoder_torch import data
+    from topo_audio_autoencoder_torch.training import Trainer, TrainerConfig
+
+    corpus = data.synth_corpus(RESUME_TRAIN + RESUME_VAL, NUM_SAMPLES, seed=SEED + 40)
+    dists = data.compute_distances(corpus[:RESUME_TRAIN], tile=DATA_TILE)
+    train = data.NSynthDataset(corpus[:RESUME_TRAIN], dists["neighbors"], train=True, seed=SEED)
+    val = data.NSynthDataset(corpus[RESUME_TRAIN:])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, epochs, directory, resume in (("full", RESUME_EPOCHS, "full", False),
+                                                    ("killed", RESUME_EPOCHS - 1, "kill", False),
+                                                    ("resumed", RESUME_EPOCHS, "kill", True)):
+                train.set_epoch(0)
+                model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 41,
+                                                     device=DEVICE)
+                trainer = Trainer(model, train, val,
+                                  config=TrainerConfig(checkpoint_dir=str(Path(tmp) / directory),
+                                                       max_epochs=epochs))
+                t0 = time.perf_counter()
+                m = trainer.train(resume=resume)
+                opt = trainer.state.opt_state
+                runs[name] = dict(
+                    s=time.perf_counter() - t0, metrics=m,
+                    params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                    moments={n: (opt.mu[n].cpu(), opt.nu[n].cpu()) for n in opt.mu},
+                    counters=(opt.count, opt.mini_step, trainer.state.step), offset=train.current_negative_offset)
+                if name == "killed":
+                    saved = port.CheckpointManager(Path(tmp) / "kill").restore("latest")["opt_state"]
+                    check(saved["mini_step"] == 2 * (RESUME_TRAIN // 4) % 4 and len(saved["acc"]) > 0,
+                          f"trainer_resume: the killed run's accumulator {saved['mini_step']}")
+                del model, trainer
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    full, res = runs["full"], runs["resumed"]
+    fm, rm = full["metrics"], res["metrics"]
+    differ = sorted(n for n in full["params"] if not torch.equal(full["params"][n], res["params"][n]))
+    moments_differ = sorted(n for n in full["moments"]
+                            if not all(torch.equal(a, b) for a, b in zip(full["moments"][n], res["moments"][n])))
+    emit("trainer_resume", config=FLAGSHIP, clips=dict(train=RESUME_TRAIN, val=RESUME_VAL), epochs=RESUME_EPOCHS,
+         cudnn_deterministic=True, seconds={k: r["s"] for k, r in runs.items()},
+         val_losses={k: r["metrics"].val_losses for k, r in runs.items()},
+         train_losses={k: r["metrics"].train_losses for k, r in runs.items()},
+         best_epoch={k: r["metrics"].best_epoch for k, r in runs.items()},
+         counters={k: r["counters"] for k, r in runs.items()}, negative_offset=full["offset"],
+         params_differ=differ[:10], n_params_differ=len(differ), moments_differ=moments_differ[:10],
+         max_param_abs_diff=max((float((full["params"][n] - res["params"][n]).abs().max()) for n in differ),
+                                default=0.0))
+    check(all(math.isfinite(v) for v in fm.iteration_losses + fm.val_losses), "trainer_resume: non-finite loss")
+    check(rm.val_losses == fm.val_losses and rm.train_losses == fm.train_losses
+          and rm.iteration_losses == fm.iteration_losses, "trainer_resume: the resumed losses differ")
+    check(rm.best_epoch == fm.best_epoch and res["counters"] == full["counters"], "trainer_resume: best epoch")
+    check(not differ and not moments_differ, f"trainer_resume: {len(differ)} parameters differ, "
+                                             f"{len(moments_differ)} moments differ")
+
+
+def phase_epoch_b128(torch, port, counters) -> None:
+    """BASELINE config 4: the precompute of 2,048 synthetic clips at tile
+    64, then Trainer.train_epoch over them at B = 128 x G = 6, bf16, on the
+    device corpus: one warm-up step, then the epoch (16 steps) on the host
+    clock, ended by its loss copy; clips/s, peak memory, launches a step;
+    one more step under torch.profiler."""
+    from topo_audio_autoencoder_torch import data
+    from topo_audio_autoencoder_torch.training import Trainer, TrainerConfig, anneal_temperature
+
+    t0 = time.perf_counter()
+    corpus = data.synth_corpus(B128_N, NUM_SAMPLES, seed=SEED + 50)
+    synth_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dists = data.compute_distances(corpus, tile=DATA_TILE)
+    precompute_s = time.perf_counter() - t0
+    ds = data.NSynthDataset(corpus, dists["neighbors"], train=True,
+                            config=data.ContrastiveConfig(num_negative_samples=B128_NEGATIVES))
+    check(ds.group_size == B128_NEGATIVES + 2, f"epoch_b128: group {ds.group_size}")
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED, device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(model, ds, data.NSynthDataset(corpus[:B128_B]), config=TrainerConfig(
+            checkpoint_dir=tmp, batch_size=B128_B, compute_dtype="bfloat16", accumulate_grad_batches=1,
+            device_corpus=True, dump_audio=False, checkpoint_every_iters=0))
+        trainer.state = trainer.init_state()
+        first = next(data.index_iterator(ds, B128_B, seed=trainer.cfg.seed, epoch=0))
+        temp = anneal_temperature(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, first, temp, trainer.run_seed)  # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        for c in counters.values():
+            c.launches = 0  # just before the main path
+        t0 = time.perf_counter()
+        loss = trainer.train_epoch(0)  # ends with the epoch's loss copy
+        epoch_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}  # just after
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        steps = B128_N // B128_B
+        check(len(trainer.metrics.iteration_losses) == steps and math.isfinite(loss)
+              and all(math.isfinite(v) for v in trainer.metrics.iteration_losses),
+              f"epoch_b128: losses {trainer.metrics.iteration_losses}")
+        trainer_launch_check("epoch_b128", launches, steps, 0)
+        profiled = trace_call(torch, lambda: trainer.train_step(trainer.state, first, temp, trainer.run_seed),
+                              f"one BASELINE config 4 step (bf16, B={B128_B}, G={B128_NEGATIVES + 2})")
+    emit("epoch_b128", config=FLAGSHIP, clips=B128_N, batch=B128_B, group=B128_NEGATIVES + 2, dtype="bfloat16",
+         steps=steps, synth_s=synth_s, precompute_s=precompute_s, warmup_s=warm_s, epoch_s=epoch_s,
+         clips_per_s=steps * B128_B / epoch_s, step_ms_mean=epoch_s / steps * 1e3, loss=loss,
+         peak_mem_gib=peak_gib, launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+         device_busy_share_profiled=profiled["device_busy_share_profiled"], profiled_step=profiled)
+
+
 def kernel_entry(name, source, replaces, launches, result) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": result["max_abs_err"], "ms": result["ms"],
         "plain_ms": result["plain_ms"], "bound_ms": result["bound_ms"],
         "bound_by": result["bound_by"], "library_ms": result["library_ms"],
+    }
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper by the name its kernels line gives it; each
+    counts its launches in ``.launches``."""
+    from topo_audio_autoencoder_torch.ops import attention
+    from topo_audio_autoencoder_torch.ops import combine_diag as cd
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+    from topo_audio_autoencoder_torch.ops import fused_samplers as fused
+    from topo_audio_autoencoder_torch.ops import sccn_combine as sc
+
+    return {
+        "masked_attention_fwd": attention.attention_fwd,
+        "masked_attention_bwd": attention.attention_bwd,
+        "binary_gumbel": fused.binary_gumbel_sample,
+        "binary_gumbel_bwd": fused.binary_gumbel_bwd,
+        "hard_concrete": hc.hard_concrete_sample,
+        "hard_concrete_bwd": hc.hard_concrete_bwd,
+        "hard_concrete_learned": hc.hard_concrete_learned_sample,
+        "hard_concrete_learned_bwd": hc.hard_concrete_learned_bwd,
+        "sccn_combine_fwd": sc.combine_fwd,
+        "sccn_combine_bwd": sc.combine_bwd,
+        "sccn_combine_packed_fwd": cd.packed_combine_fwd,
+        "sccn_combine_packed_bwd": cd.packed_combine_bwd,
+        "sccn_combine_copy": cd.combine_copy,
+        "sccn_combine_matmul": cd.combine_matmul,
+        "sccn_combine_nogelu": cd.combine_nogelu,
     }
 
 
@@ -2534,23 +2915,7 @@ def main() -> int:
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
     )
-    counters = {
-        "masked_attention_fwd": attention.attention_fwd,
-        "masked_attention_bwd": attention.attention_bwd,
-        "binary_gumbel": fused.binary_gumbel_sample,
-        "binary_gumbel_bwd": fused.binary_gumbel_bwd,
-        "hard_concrete": hc.hard_concrete_sample,
-        "hard_concrete_bwd": hc.hard_concrete_bwd,
-        "hard_concrete_learned": hc.hard_concrete_learned_sample,
-        "hard_concrete_learned_bwd": hc.hard_concrete_learned_bwd,
-        "sccn_combine_fwd": sc.combine_fwd,
-        "sccn_combine_bwd": sc.combine_bwd,
-        "sccn_combine_packed_fwd": cd.packed_combine_fwd,
-        "sccn_combine_packed_bwd": cd.packed_combine_bwd,
-        "sccn_combine_copy": cd.combine_copy,
-        "sccn_combine_matmul": cd.combine_matmul,
-        "sccn_combine_nogelu": cd.combine_nogelu,
-    }
+    counters = launch_counters()
     try:
         phase_combine_build()
         phase_kernel(torch, attention)
@@ -2569,7 +2934,7 @@ def main() -> int:
         phase_trace(torch, codec)
         phase_parity(torch, port, model, codec)
         del model, codec
-        tmodel, tstate, tstep, tbatch, launches = phase_train(torch, port, counters)
+        tmodel, tstate, tstep, tbatch, _ = phase_train(torch, port, counters)
         fwd, bwd = phase_train_kernels(torch, attention, tmodel, tstate, tstep, tbatch)
         phase_train_trace(torch, tstate, tstep, tbatch)
         del tmodel, tstate, tstep
@@ -2607,6 +2972,12 @@ def main() -> int:
                           training.LossWeights(), GUMBEL_EXPECT)
         torch.cuda.empty_cache()
         phase_data(torch, port, counters)
+        torch.cuda.empty_cache()
+        trainer_launches = phase_trainer_main(torch, port, counters)
+        torch.cuda.empty_cache()
+        phase_trainer_resume(torch, port, counters)
+        torch.cuda.empty_cache()
+        phase_epoch_b128(torch, port, counters)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -2615,13 +2986,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_entry("masked_attention_fwd", csrc + "masked_attention_fwd.cu",
                      "topo_audio_autoencoder_tpu/ops/attention.py:54",
-                     launches["masked_attention_fwd"], fwd),
+                     trainer_launches["masked_attention_fwd"], fwd),
         kernel_entry("masked_attention_bwd", csrc + "masked_attention_bwd.cu",
                      "topo_audio_autoencoder_tpu/ops/attention.py:122",
-                     launches["masked_attention_bwd"], bwd),
+                     trainer_launches["masked_attention_bwd"], bwd),
         kernel_entry("binary_gumbel", csrc + "binary_gumbel.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:216",
-                     launches["binary_gumbel"], sampler),
+                     trainer_launches["binary_gumbel"], sampler),
         kernel_entry("hard_concrete", csrc + "hard_concrete.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:61",
                      hc_launches["hard_concrete"], hc_kernels["hard_concrete"]),
@@ -2630,7 +3001,7 @@ def main() -> int:
                      learned_launches["hard_concrete_learned"], hc_kernels["hard_concrete_learned"]),
         kernel_entry("binary_gumbel_bwd", csrc + "binary_gumbel.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:286",
-                     launches["binary_gumbel_bwd"], sampler_bwd["binary_gumbel_bwd"]),
+                     trainer_launches["binary_gumbel_bwd"], sampler_bwd["binary_gumbel_bwd"]),
         kernel_entry("hard_concrete_bwd", csrc + "hard_concrete.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:317",
                      hc_launches["hard_concrete_bwd"], sampler_bwd["hard_concrete_bwd"]),

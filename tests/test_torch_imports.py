@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "topo_audio_autoencoder_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "topo_audio_autoencoder_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "topo_audio_autoencoder_tpu")
 
 
 def _env():

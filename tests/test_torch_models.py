@@ -374,3 +374,65 @@ def test_sampler_options_are_checked(option, match):
 
     with pytest.raises(ValueError, match=match):
         TorchAutoencoder.create(**TINY, num_samples=1024, device="cpu", **option)
+
+
+# The gathers whose backward the port writes itself, so that it adds in a
+# fixed order on the card: in float64 each equals autograd's own backward of
+# the plain gather (the same products, summed in another order), and the
+# forward is the plain gather's, bit for bit.
+
+
+def _resize_reference(x, i0, i1, w):
+    return x[..., i0, :] * (1.0 - w) + x[..., i1, :] * w
+
+
+@pytest.mark.parametrize("t,out", [(250, 500), (7, 3), (5, 13), (1, 4)])
+def test_linear_resize_backward_equals_the_gathers(t, out):
+    from topo_audio_autoencoder_torch.models.decoder import _resize_plan, linear_resize
+
+    rng = np.random.default_rng(t * 31 + out)
+    x = torch.tensor(rng.standard_normal((3, t, 6)), requires_grad=True)
+    g = torch.tensor(rng.standard_normal((3, out, 6)))
+    i0, i1, w, _ = _resize_plan(t, out, x.device)
+    got, want = linear_resize(x, out), _resize_reference(x, i0, i1, w.to(x.dtype))
+    assert torch.equal(got, want)
+    torch.testing.assert_close(torch.autograd.grad(got, x, g)[0], torch.autograd.grad(want, x, g)[0],
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_masked_linear_resize_backward_equals_the_gathers():
+    from topo_audio_autoencoder_torch.models.decoder import masked_linear_resize
+
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((3, 20, 6)), requires_grad=True)
+    g = torch.tensor(rng.standard_normal((3, 250, 6)))
+    valid = torch.tensor([20, 7, 0])
+    got = masked_linear_resize(x, valid, 250)
+    vl = valid.to(torch.float32)[:, None]
+    j = torch.arange(250, dtype=torch.float32)[None, :]
+    src = torch.minimum(torch.clamp((j + 0.5) * vl / 250 - 0.5, min=0.0), torch.clamp(vl - 1.0, min=0.0))
+    i0 = torch.floor(src).long()
+    i1 = torch.minimum(i0 + 1, torch.clamp(valid[:, None] - 1, min=0))
+    w = (src - i0)[..., None].to(x.dtype)
+    want = (torch.gather(x, 1, i0[..., None].expand(-1, -1, 6)) * (1.0 - w)
+            + torch.gather(x, 1, i1[..., None].expand(-1, -1, 6)) * w)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(torch.autograd.grad(got, x, g)[0], torch.autograd.grad(want, x, g)[0],
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,max_rank", [(20, 3), (6, 1)])
+def test_rectifier_face_gather_backward_equals_the_gather(n, max_rank):
+    from topo_audio_autoencoder_torch.topology import build_tables
+    from topo_audio_autoencoder_torch.topology.rectifier import _FaceGather, face_adjoints, face_indices
+
+    tables = build_tables(n, max_rank)
+    rng = np.random.default_rng(n)
+    cpu = torch.device("cpu")
+    for idx, adjoint, size in zip(face_indices(tables, cpu), face_adjoints(tables, cpu), tables.sizes):
+        x = torch.tensor(rng.standard_normal((2, size)), requires_grad=True)
+        g = torch.tensor(rng.standard_normal((2, *idx.shape)))
+        got = _FaceGather.apply(x, idx, adjoint)
+        assert torch.equal(got, x[..., idx])
+        torch.testing.assert_close(torch.autograd.grad(got, x, g)[0], torch.autograd.grad(x[..., idx], x, g)[0],
+                                   rtol=1e-12, atol=1e-12)

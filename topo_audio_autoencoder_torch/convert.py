@@ -18,6 +18,12 @@ name by joining it with dots and renaming the leaf:
 
 It raises on a leaf it does not consume, on a port parameter it does not
 fill, and on any shape that does not match the port's.
+
+``opt_state_from_optax`` carries the optimizer across: a host copy of the
+JAX package's optax state (``jax.device_get`` of ``TrainState.opt_state``)
+becomes the port's ``OptState``, its moments renamed and laid out as the
+parameters are. It reads the state by attribute names alone and imports
+nothing of optax.
 """
 
 from __future__ import annotations
@@ -75,3 +81,108 @@ def state_dict_from_flax(flax_params: Mapping, template: Mapping) -> dict:
     if missing:
         raise KeyError(f"port parameters not filled by the flax tree: {missing}")
     return out
+
+
+def _find(tree, attribute: str):
+    """The first object in ``tree`` (tuples, lists, dicts and named tuples,
+    depth first) that has ``attribute``."""
+    if hasattr(tree, attribute):
+        return tree
+    children = tree.values() if isinstance(tree, Mapping) else tree if isinstance(tree, (tuple, list)) else ()
+    for child in children:
+        found = _find(child, attribute)
+        if found is not None:
+            return found
+    return None
+
+
+def _flatten_unmasked(tree: Mapping, prefix: tuple = ()) -> dict:
+    """``_flatten`` without optax's masked entries (the other group's
+    leaves, which carry no array)."""
+    flat = {}
+    for key, value in tree.items():
+        path = (*prefix, str(key))
+        if isinstance(value, Mapping):
+            flat.update(_flatten_unmasked(value, path))
+        elif hasattr(value, "shape"):
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def _group_of(name: str) -> str:
+    return "encoder" if name.startswith("encoder.") else "decoder"
+
+
+def opt_state_from_optax(opt_state, template: Mapping):
+    """Convert the JAX package's optax state to the port's ``OptState``.
+
+    ``opt_state`` is ``make_optimizer``'s state on the host: ``clip ->
+    multi_transform({encoder: adam, decoder: adam})``, wrapped in
+    ``MultiSteps`` when gradients accumulate. Each group's Adam moments
+    ``mu``/``nu`` cover its own leaves (an encoder parameter from the
+    ``encoder`` group, every other one from ``decoder``; the other group's
+    entries are masked); ``count`` is the number of applied updates, equal
+    in both groups. Under ``MultiSteps`` its ``mini_step`` and, mid-cycle,
+    ``acc_grads`` become the port's ``mini_step`` and ``acc``.
+
+    ``template`` is the port model's ``state_dict()``: the moments take its
+    names, shapes, dtypes and device. Raises where a leaf cannot be placed
+    (a foreign name, a leaf in the wrong group, a wrong shape) or a
+    parameter is left without moments.
+    """
+    from .training.train_step import OptState
+
+    def tensor(name, path, value):
+        if name not in template:
+            raise KeyError(f"optax leaf {'/'.join(path)} -> {name}: no such port parameter")
+        target = template[name]
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(
+                f"optax leaf {'/'.join(path)} -> {name}: shape {tuple(value.shape)} "
+                f"does not match the port's {tuple(target.shape)}"
+            )
+        return torch.tensor(np.asarray(value), dtype=target.dtype, device=target.device)
+
+    def convert(tree, group=None) -> dict:
+        if set(tree) == {"params"}:
+            tree = tree["params"]
+        out = {}
+        for path, value in _flatten_unmasked(tree).items():
+            name, array = _torch_leaf(path, value)
+            if group is not None and _group_of(name) != group:
+                raise ValueError(f"optax leaf {'/'.join(path)} -> {name} is in the {group} group")
+            out[name] = tensor(name, path, array)
+        return out
+
+    partition = _find(opt_state, "inner_states")
+    if partition is None:
+        raise ValueError("no multi_transform state (inner_states) in the optax state")
+    mu, nu, counts = {}, {}, set()
+    for group, masked in partition.inner_states.items():
+        if group not in ("encoder", "decoder"):
+            raise KeyError(f"optax group {group!r}: the port has only 'encoder' and 'decoder'")
+        adam = _find(getattr(masked, "inner_state", masked), "nu")
+        if adam is None or not hasattr(adam, "mu") or not hasattr(adam, "count"):
+            raise ValueError(f"optax group {group!r} holds no Adam state (mu, nu, count)")
+        for into, moments in ((mu, adam.mu), (nu, adam.nu)):
+            converted = convert(moments, group)
+            clash = set(into) & set(converted)
+            if clash:
+                raise ValueError(f"optax leaves in two groups: {sorted(clash)}")
+            into.update(converted)
+        counts.add(int(np.asarray(adam.count)))
+    for what, moments in (("mu", mu), ("nu", nu)):
+        missing = sorted(set(template) - set(moments))
+        if missing:
+            raise KeyError(f"port parameters without an optax {what}: {missing}")
+    if len(counts) != 1:
+        raise ValueError(f"the groups' Adam counts differ: {sorted(counts)}")
+    mini_step, acc = 0, {}
+    if hasattr(opt_state, "mini_step") and hasattr(opt_state, "acc_grads"):
+        mini_step = int(np.asarray(opt_state.mini_step))
+        if mini_step:
+            acc = convert(opt_state.acc_grads)
+            missing = sorted(set(template) - set(acc))
+            if missing:
+                raise KeyError(f"port parameters without an optax acc_grads leaf: {missing}")
+    return OptState(mu=mu, nu=nu, count=counts.pop(), mini_step=mini_step, acc=acc)

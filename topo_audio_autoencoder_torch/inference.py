@@ -1,8 +1,7 @@
 """Codec view of the autoencoder: waveform -> binary simplicial latent ->
 waveform, and the bit-packed wire format.
 
-Port of ``topo_audio_autoencoder_tpu.inference`` (without the parameter
-save/load, which comes with the checkpoint slice).
+Port of ``topo_audio_autoencoder_tpu.inference``.
 
 - ``Codec.encode``: waveform -> per-rank latent (the deterministic eval
   path: the noiseless relaxation, rectified; binary for the Gumbel sampler
@@ -14,11 +13,14 @@ save/load, which comes with the checkpoint slice).
   ``ceil((n + C(n,2) + C(n,3) + C(n,4)) / 8)`` bytes per clip (n=20: 775
   bytes). The byte layout is the JAX package's, so either package decodes
   the other's bytes.
+- ``save_params`` / ``load_params``: a ``state_dict`` through the port's
+  ``CheckpointManager`` (``<directory>/<name>/state.pt``).
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +29,7 @@ import torch
 from .device import resolve_device
 from .models.autoencoder import AudioAutoencoder
 from .topology.rectifier import RectifiedProbs
+from .training.checkpoint import CheckpointManager
 
 
 class SimplicialLatent(NamedTuple):
@@ -106,3 +109,14 @@ def unpack_latent(
     bits = np.unpackbits(np.asarray(packed, dtype=np.uint8), axis=-1, count=sum(sizes))
     splits = np.split(bits, np.cumsum(sizes)[:-1], axis=-1)
     return SimplicialLatent(*(torch.from_numpy(s.copy()).to(dtype) for s in splits))
+
+
+def save_params(directory: str | Path, params, name: str = "params") -> None:
+    """Save a ``state_dict`` as checkpoint ``name`` under ``directory``."""
+    CheckpointManager(directory).save(name, params)
+
+
+def load_params(directory: str | Path, template, name: str = "params"):
+    """Load checkpoint ``name``; ``template`` (a ``state_dict``) gives the
+    names, shapes, dtypes and device of the result."""
+    return CheckpointManager(directory).restore(name, template=template)

@@ -16,32 +16,89 @@ masked-static:
 
 Tensors are channels-last ``[B, T, C]`` between stages, as in the JAX
 package; the convs run on the NCW transpose.
+
+The two linear resizes gather along time with repeated indices. Their
+backward adds each input step's cotangents in a fixed order (an adjoint
+gather and a sum; a product with the [out, T] interpolation matrix):
+autograd's own backward of a gather adds them with atomics on the card, in
+an order that changes from run to run.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_masked_attention
 from ..topology.builder import SimplicialOperators
+from ..topology.rectifier import index_adjoint
 from .encoder import gelu, group_norm, layer_norm
 from .init import init_standard_module
 from .sccn import GradientSCCN, JumpingKnowledgeSCCN
 
 
+@lru_cache(maxsize=64)
+def _resize_plan(t: int, out_len: int, device: torch.device) -> tuple:
+    """The source steps and weights of a linear resize T -> out_len
+    (align_corners=False), and the adjoint of its two gathers, built once
+    per (T, out_len, device) (with inference mode off, so that a backward
+    may save them)."""
+    with torch.inference_mode(False), torch.no_grad():
+        src = (torch.arange(out_len, dtype=torch.float32, device=device) + 0.5) * (t / out_len) - 0.5
+        src = torch.clamp(src, 0.0, t - 1.0)
+        i0 = torch.floor(src).to(torch.long)
+        i1 = torch.clamp(i0 + 1, max=t - 1)
+        w = (src - i0)[:, None]
+        adjoint = torch.as_tensor(index_adjoint(torch.cat([i0, i1]).cpu().numpy(), t), device=device)
+    return i0, i1, w, adjoint
+
+
+class _Resize(torch.autograd.Function):
+    """``x[..., i0, :] * (1 - w) + x[..., i1, :] * w``; the backward sums
+    each step's two weighted cotangent rows over ``adjoint``."""
+
+    @staticmethod
+    def forward(ctx, x, i0, i1, w, adjoint):
+        ctx.save_for_backward(w, adjoint)
+        return x[..., i0, :] * (1.0 - w) + x[..., i1, :] * w
+
+    @staticmethod
+    def backward(ctx, g):
+        w, adjoint = ctx.saved_tensors
+        rows = torch.cat([g * (1.0 - w), g * w, g.new_zeros(*g.shape[:-2], 1, g.shape[-1])], dim=-2)
+        return rows[..., adjoint, :].sum(dim=-2), None, None, None, None
+
+
 def linear_resize(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """Linear interpolation along axis -2 (time), align_corners=False.
     x: [..., T, C] -> [..., out_len, C]."""
-    t = x.shape[-2]
-    src = (torch.arange(out_len, dtype=torch.float32, device=x.device) + 0.5) * (
-        t / out_len
-    ) - 0.5
-    src = torch.clamp(src, 0.0, t - 1.0)
-    i0 = torch.floor(src).to(torch.long)
-    i1 = torch.clamp(i0 + 1, max=t - 1)
-    w = (src - i0)[:, None].to(x.dtype)
-    return x[..., i0, :] * (1.0 - w) + x[..., i1, :] * w
+    i0, i1, w, adjoint = _resize_plan(x.shape[-2], out_len, x.device)
+    return _Resize.apply(x, i0, i1, w.to(x.dtype), adjoint)
+
+
+class _MaskedResize(torch.autograd.Function):
+    """Per-row ``gather(x, i0) * (1 - w) + gather(x, i1) * w`` over
+    [B, T, C]; the backward is the product with the transposed [B, out, T]
+    interpolation matrix."""
+
+    @staticmethod
+    def forward(ctx, x, i0, i1, w):
+        ctx.save_for_backward(i0, i1, w)
+        ctx.steps = x.shape[1]
+        c = x.shape[-1]
+        g0 = torch.gather(x, 1, i0[..., None].expand(-1, -1, c))
+        g1 = torch.gather(x, 1, i1[..., None].expand(-1, -1, c))
+        return g0 * (1.0 - w) + g1 * w
+
+    @staticmethod
+    def backward(ctx, g):
+        i0, i1, w = ctx.saved_tensors
+        interp = (F.one_hot(i0, ctx.steps).to(g.dtype) * (1.0 - w)
+                  + F.one_hot(i1, ctx.steps).to(g.dtype) * w)  # [B, out, T]
+        return interp.transpose(1, 2) @ g, None, None, None
 
 
 def masked_linear_resize(
@@ -49,7 +106,6 @@ def masked_linear_resize(
 ) -> torch.Tensor:
     """Resize [B, T, C] treating only the first ``valid_len[b]`` steps as
     the source sequence. ``valid_len``: [B] ints."""
-    c = x.shape[-1]
     vl = valid_len.to(torch.float32)[:, None]  # [B, 1]
     j = torch.arange(out_len, dtype=torch.float32, device=x.device)[None, :]
     hi = torch.clamp(vl - 1.0, min=0.0)
@@ -57,9 +113,7 @@ def masked_linear_resize(
     i0 = torch.floor(src).to(torch.long)  # [B, out]
     i1 = torch.minimum(i0 + 1, torch.clamp(valid_len[:, None].to(torch.long) - 1, min=0))
     w = (src - i0)[..., None].to(x.dtype)
-    g0 = torch.gather(x, 1, i0[..., None].expand(-1, -1, c))
-    g1 = torch.gather(x, 1, i1[..., None].expand(-1, -1, c))
-    return g0 * (1.0 - w) + g1 * w
+    return _MaskedResize.apply(x, i0, i1, w)
 
 
 def pack_active(feats: torch.Tensor, mask: torch.Tensor):

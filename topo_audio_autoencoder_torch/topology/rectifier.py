@@ -11,6 +11,11 @@ The zero masks chain like the reference: edges mask from the raw vertex
 probs, triangles from the rectified edges, tetra from the rectified
 triangles. The log/exp chain with eps=1e-10 underflows in bf16, so the
 rectifier always computes in float32 and casts back to the input dtype.
+
+The face gather's backward adds each face's cotangents in a fixed order
+(``_FaceGather``): autograd's own backward of an index adds them with
+atomics on the card, in an order that changes from run to run, and a
+train step would not repeat its gradients bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 from functools import lru_cache
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .complexes import ComplexTables
@@ -52,12 +58,54 @@ def face_indices(tables: ComplexTables, device: torch.device) -> tuple:
         )
 
 
+def index_adjoint(idx: np.ndarray, n: int) -> np.ndarray:
+    """For each of ``n`` targets, the flat positions of ``idx`` (any shape;
+    for a face table [S, k], ``s * k + j``) that name it, ascending:
+    [n, c] with c the most any target has; a target with fewer is padded
+    with ``idx.size``."""
+    flat = np.asarray(idx, dtype=np.int64).reshape(-1)
+    counts = np.bincount(flat, minlength=n)
+    order = np.argsort(flat, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    adjoint = np.full((n, int(counts.max(initial=0))), flat.size, np.int64)
+    adjoint[flat[order], np.arange(flat.size) - starts[flat[order]]] = order
+    return adjoint
+
+
+@lru_cache(maxsize=16)
+def face_adjoints(tables: ComplexTables, device: torch.device) -> tuple:
+    """``index_adjoint`` of each face table of ``face_indices``, on
+    ``device``, built once per (tables, device)."""
+    with torch.inference_mode(False):
+        return tuple(
+            torch.as_tensor(index_adjoint(idx, tables.sizes[r]), device=device)
+            for r, idx in enumerate((tables.edges, tables.tri_edges, tables.tet_tris))
+        )
+
+
+class _FaceGather(torch.autograd.Function):
+    """``x[..., face_idx]``: [..., F] -> [..., S, k]. The backward sums each
+    face's cotangents over its ``adjoint`` positions in their fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, face_idx, adjoint):
+        ctx.save_for_backward(adjoint)
+        return x[..., face_idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (adjoint,) = ctx.saved_tensors
+        flat = g.reshape(*g.shape[:-2], -1)
+        flat = torch.cat([flat, flat.new_zeros(*flat.shape[:-1], 1)], dim=-1)  # the pad position
+        return flat[..., adjoint].sum(dim=-1), None, None
+
+
 def _rectify_rank(
-    raw: torch.Tensor, face_probs: torch.Tensor, face_idx: torch.Tensor, eps: float
+    raw: torch.Tensor, face_probs: torch.Tensor, face_idx: torch.Tensor, adjoint: torch.Tensor, eps: float
 ) -> torch.Tensor:
     """min(raw, geomean of the k faces), zeros propagated (gather form)."""
     log_faces = torch.log(face_probs + eps)
-    geo = torch.exp(log_faces[..., face_idx].mean(dim=-1))  # [..., S]
+    geo = torch.exp(_FaceGather.apply(log_faces, face_idx, adjoint).mean(dim=-1))  # [..., S]
     zero = (face_probs == 0.0)[..., face_idx].any(dim=-1)
     geo = torch.where(zero, torch.zeros_like(geo), geo)
     return torch.minimum(raw, geo)
@@ -80,9 +128,10 @@ def enforce_constraints(
         p.to(torch.float32) for p in (vertex_probs, edge_probs, triangle_probs, tetra_probs)
     )
     edges, tri_edges, tet_tris = face_indices(tables, v.device)
-    re = _rectify_rank(e, v, edges, eps)
-    rt = _rectify_rank(t, re, tri_edges, eps)
-    rtt = _rectify_rank(tt, rt, tet_tris, eps)
+    a_edges, a_tri_edges, a_tet_tris = face_adjoints(tables, v.device)
+    re = _rectify_rank(e, v, edges, a_edges, eps)
+    rt = _rectify_rank(t, re, tri_edges, a_tri_edges, eps)
+    rtt = _rectify_rank(tt, rt, tet_tris, a_tet_tris, eps)
     return RectifiedProbs(*(p.to(in_dtype) for p in (v, re, rt, rtt)))
 
 

@@ -1,6 +1,9 @@
-"""Training objective, optimizer and train/eval steps."""
+"""Training layer: objective, steps and optimizer, trainer shell,
+checkpointing."""
 
 from .losses import LossWeights, autoencoder_loss
+from .metrics import MetricWriter, TrainingMetrics
+from .checkpoint import CheckpointManager
 from .train_step import (
     Optimizer,
     OptState,
@@ -9,22 +12,34 @@ from .train_step import (
     component_grad_norms,
     create_train_state,
     make_eval_step,
+    make_indexed_train_step,
     make_loss_and_grads,
     make_optimizer,
+    make_scan_indexed_train_step,
+    make_scan_train_step,
     make_train_step,
 )
+from .trainer import Trainer, TrainerConfig
 
 __all__ = [
+    "CheckpointManager",
     "LossWeights",
+    "MetricWriter",
     "OptState",
     "Optimizer",
     "TrainState",
+    "Trainer",
+    "TrainerConfig",
+    "TrainingMetrics",
     "anneal_temperature",
     "autoencoder_loss",
     "component_grad_norms",
     "create_train_state",
     "make_eval_step",
+    "make_indexed_train_step",
     "make_loss_and_grads",
     "make_optimizer",
+    "make_scan_indexed_train_step",
+    "make_scan_train_step",
     "make_train_step",
 ]

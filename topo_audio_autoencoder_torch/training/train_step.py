@@ -1,7 +1,7 @@
 """The train and eval steps and the optimizer.
 
-Port of ``topo_audio_autoencoder_tpu.training.train_step`` (the plain step;
-the scanned and corpus-indexed variants come with a later slice):
+Port of ``topo_audio_autoencoder_tpu.training.train_step``: the plain
+step, the corpus-indexed step and the scanned steps.
 
 - Two-group Adam: parameters whose name starts with ``encoder.`` train at
   the encoder's learning rate, all others at the decoder's.
@@ -21,6 +21,17 @@ the scanned and corpus-indexed variants come with a later slice):
   ``jax.random.fold_in(rng, step)`` does in the JAX package. Tests inject
   the sampler's uniforms (``noise``) and, for a ``hard`` model, the four
   per-rank Bernoulli uniforms (``hard_noise``).
+- ``make_indexed_train_step`` keeps an [N, T] corpus on the model's device
+  and gathers each step's [B, G, 1, T] batch there from a [B, G] index
+  matrix, with no host round trip. ``make_scan_train_step`` and
+  ``make_scan_indexed_train_step`` take K batches (or index matrices) with
+  a leading axis and run K steps as a Python loop that never waits for the
+  device, returning each metric stacked to [K]. The step counter advances
+  through the loop, so K scanned steps equal K single ones.
+- ``donate`` is accepted with the JAX package's default and has no effect
+  (the step updates in place). ``mesh`` and ``shard_corpus`` belong to
+  data-parallel training, which is still to come (ROADMAP.md, Queue 1
+  item 6): they raise ``NotImplementedError``.
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters and the optimizer state in place and returns the same state.
@@ -32,6 +43,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 
 from ..models.autoencoder import AudioAutoencoder
@@ -301,3 +313,90 @@ def make_eval_step(model: AudioAutoencoder, weights: LossWeights = LossWeights()
 def anneal_temperature(epoch, initial_temp: float = 5.0, min_temp: float = 0.1, decay: float = 0.95):
     """Per-epoch sampler temperature, max(min_temp, T0 * decay^epoch)."""
     return temperature_schedule(epoch, initial_temp, min_temp, decay)
+
+
+def _no_data_parallel(mesh, shard_corpus: bool) -> None:
+    if mesh is not None or shard_corpus:
+        raise NotImplementedError(
+            "mesh and shard_corpus belong to data-parallel training, which the port does not "
+            "have yet (ROADMAP.md, Queue 1 item 6: DistributedDataParallel)"
+        )
+
+
+def gather_batch(corpus: torch.Tensor, idxs) -> torch.Tensor:
+    """``corpus[idxs][:, :, None, :]``: the [B, G, 1, T] batch of the [B, G]
+    index matrix ``idxs`` (int32 or int64), gathered on the corpus's device."""
+    idx = torch.as_tensor(idxs, device=corpus.device)
+    return corpus.index_select(0, idx.reshape(-1)).reshape(*idx.shape, 1, corpus.shape[-1])
+
+
+def device_corpus(corpus, device) -> torch.Tensor:
+    """An [N, T] corpus as float32 on ``device``; a tensor already there is
+    used as it is (no copy)."""
+    if isinstance(corpus, torch.Tensor):
+        return corpus.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(corpus, dtype=np.float32)).to(device)
+
+
+def make_indexed_train_step(
+    model: AudioAutoencoder,
+    optimizer: Optimizer,
+    corpus,
+    weights: LossWeights = LossWeights(),
+    compute_dtype: torch.dtype = torch.float32,
+    with_grad_norms: bool = False,
+    donate: bool = True,
+    mesh=None,
+    shard_corpus: bool = False,
+):
+    """``indexed_step(state, idxs, temperature, seed) -> (state, metrics)``:
+    the train step over a corpus (``[N, T]`` numpy array or tensor) placed
+    on the model's device once. Each call takes a [B, G] index matrix and
+    gathers its batch there; the sampling is ``NSynthDataset``'s."""
+    _no_data_parallel(mesh, shard_corpus)
+    base = make_train_step(model, optimizer, weights, compute_dtype, with_grad_norms)
+    corpus_dev = device_corpus(corpus, next(model.parameters()).device)
+
+    def indexed_step(state: TrainState, idxs, temperature, seed: int):
+        return base(state, gather_batch(corpus_dev, idxs), temperature, seed)
+
+    return indexed_step
+
+
+def make_scan_train_step(train_step, donate: bool = True):
+    """``scan_steps(state, batches, temperature, seed) -> (state, metrics)``:
+    K train steps of ``train_step`` over batches with a leading [K] axis,
+    issued back to back with no synchronisation; every metric comes back
+    stacked to [K]. The step's randomness derives from (seed, state.step),
+    so the result equals K single steps."""
+
+    def scan_steps(state: TrainState, batches, temperature, seed: int):
+        per_step = []
+        for batch in batches:
+            state, metrics = train_step(state, batch, temperature, seed)
+            per_step.append(metrics)
+        return state, pytree.tree_map(lambda *leaves: torch.stack(leaves), *per_step)
+
+    return scan_steps
+
+
+def make_scan_indexed_train_step(
+    model: AudioAutoencoder,
+    optimizer: Optimizer,
+    corpus,
+    weights: LossWeights = LossWeights(),
+    compute_dtype: torch.dtype = torch.float32,
+    with_grad_norms: bool = False,
+    donate: bool = True,
+    mesh=None,
+    shard_corpus: bool = False,
+):
+    """The scanned variant of ``make_indexed_train_step``: takes [K, B, G]
+    index matrices and runs K steps, each gathering its batch from the
+    device corpus."""
+    return make_scan_train_step(
+        make_indexed_train_step(
+            model, optimizer, corpus, weights, compute_dtype, with_grad_norms, mesh=mesh,
+            shard_corpus=shard_corpus,
+        )
+    )
