@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec, train step and trainer on one CUDA card
-and hold its kernels against their plain versions.
+"""Drive the PyTorch port's codec, codec CLI, train step, trainer and
+vmapped grid tuner on one CUDA card and hold its kernels against their
+plain versions.
 
     python3 chip_smoke.py
 
@@ -147,14 +148,34 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             B = 128 x G = 6, bf16, on the device corpus (16 steps): clips/s
             over the epoch's wall (ended by its loss copy), peak memory,
             launches a step, one step under torch.profiler.
-23. profiler  how many kernel profiles the run took, and which of them
+23. codec_cli  the port's codec CLI (codec_cli.main, in-process, on the
+            card): 8 clips of 64,000 samples written as WAVs, encode ->
+            .tac -> decode, twice each, for the flagship (--params) and the
+            n=32 packed model (a Trainer checkpoint whose sidecar alone
+            gives the geometry): the header, the bits against a direct
+            encode, the waveform against a direct Codec decode (one int16
+            step), row 1 once a decode and nothing else; clips/s.
+24. tuner    benchmarks/full_recipe.py's tune stage through
+            Trainer.tune_hyperparameters_vmapped at full width: the 8-combo
+            grid, B = 8 x G = 12, bf16, the device corpus, scanned (88 + 10
+            clips, 1 epoch): grid-step ms (CUDA events), rows 1 and 2 once
+            each a grid step over K*B = 64 elements, peak memory, one grid
+            step profiled (busy share); rows 1 and 2 against their plain
+            versions on the folded bf16 inputs one more grid step hands
+            them; then the production train step of one combo (the
+            sequential tuner's unit), 10 timed steps.
+25. tuner_parity  one K = 2 grid step (fp32, B=2, G=3, cuDNN
+            deterministic) against two single-combo steps of the port on
+            the same weights and uniforms, at train_parity's bounds.
+26. profiler  how many kernel profiles the run took, and which of them
             recorded no device activity at first and were taken again.
-24. kernels  one line per kernel: route, source, launches (rows 1, 2, 3
-            and 3's backward: trainer_main's first run; the others their
-            train step; combine_diag's ladder for rows 8-10), error, times
-            (at its train step's shape; the ladder's for rows 8-10). The
-            samplers' backward kernels stand in the line under the JAX VJPs
-            they replace (_bg_bwd, _hc_bwd, _hcl_bwd).
+27. kernels  one line per kernel: route, source, launches (rows 1 and 2:
+            trainer_main's first run + the codec CLI's runs + the tuner's
+            run; row 3 and 3's backward: trainer_main's first run; the
+            others their train step; combine_diag's ladder for rows 8-10),
+            error, times (at its train step's shape; the ladder's for rows
+            8-10). The samplers' backward kernels stand in the line under
+            the JAX VJPs they replace (_bg_bwd, _hc_bwd, _hcl_bwd).
 
 Then the nvidia-smi line and, last, {"ok": true, "device": ...}. Any failed
 check exits non-zero before the last line. Without a card it exits 2.
@@ -162,6 +183,7 @@ check exits non-zero before the last line. Without a card it exits 2.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -406,6 +428,31 @@ RESUME_TRAIN, RESUME_VAL, RESUME_EPOCHS = 28, 4, 3
 # synthetic clips, the precompute at tile 64, 4 negatives (G = 6), B = 128,
 # bf16, no accumulation, the device corpus; one warm-up step, then one epoch.
 B128_N, B128_B, B128_NEGATIVES = 2048, 128, 4
+# codec_cli: the port's CLI in-process on the card (no --device: the card),
+# CLIPS clips of 64,000 samples through WAV files (the clips scaled by
+# CLI_GAIN to stay inside int16), encode and decode CLI_RUNS times each (the
+# first run builds the caches): the flagship from a save_params directory,
+# the n=32 packed model from a Trainer checkpoint whose sidecar alone gives
+# the geometry. The CLI's waveform against a direct Codec decode of the
+# same bits: one int16 step (the WAV container's quantization).
+CLI_RUNS = 2
+CLI_GAIN = 0.5
+TOL_INT16 = 2.0 / 32768.0
+# tuner: benchmarks/full_recipe.py's tune stage (:314-336) at full width:
+# the 8-combo grid, B = min(8, batch) = 8, G = 12 (ContrastiveConfig's
+# default), the device corpus, scan_steps 16, bf16 (the recipe's dtype off
+# the CPU); cut in scale only: 88 training clips for the recipe's 512 (11
+# grid steps in one scanned segment, the first warms up) + 10 val (1 val
+# batch), 1 tuning epoch for 5. Then TUNE_SEQ_STEPS timed steps of the
+# production train step (the sequential tuner's, one combo) after a warm-up.
+TUNE_GRID = {"encoder_lr": [1e-3, 5e-4], "decoder_lr": [1e-3, 3e-4], "complexity_penalty": [0.05, 0.1]}
+TUNE_TRAIN, TUNE_VAL, TUNE_B, TUNE_SCAN = 88, 10, 8, 16
+TUNE_SEQ_STEPS = 10
+# tuner_parity: one K = 2 grid step (fp32, B = 2 x G = 3, dropout off,
+# cuDNN deterministic) against two single-combo steps of the port on the
+# same weights and uniforms, at train_parity's bounds (loss, the whole
+# gradient where conditioned, every surrogate leaf).
+PARITY_GRID = {"encoder_lr": [1e-3, 5e-4], "decoder_lr": [1e-4], "complexity_penalty": [0.1]}
 # The kernels a Gumbel step launches once each, beside the attention's.
 GUMBEL_EXPECT = {"binary_gumbel": 1, "binary_gumbel_bwd": 1}
 # The Hard Concrete kernels, forward and backward (rows 4 and 5).
@@ -2847,6 +2894,352 @@ def phase_epoch_b128(torch, port, counters) -> None:
          device_busy_share_profiled=profiled["device_busy_share_profiled"], profiled_step=profiled)
 
 
+def phase_codec_cli(torch, port, counters) -> dict:
+    """The port's codec CLI on the card through WAV files: encode and
+    decode CLI_RUNS times each, for the flagship (``--params``) and the n=32
+    packed model (``--checkpoint``, geometry from the sidecar alone).
+    Checks the header, the bits against a direct encode of the same WAV
+    windows, the CLI's waveform against a direct Codec decode of the same
+    bits (one int16 step), and row 1 once a decode batch and nothing else
+    launched. Returns row 1's launches over every CLI run."""
+    import contextlib
+    import io
+
+    from topo_audio_autoencoder_torch import codec_cli
+    from topo_audio_autoencoder_torch.data.preprocess import load_wav, save_wav
+
+    total = dict.fromkeys(counters, 0)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for name, config, options in (("flagship", FLAGSHIP, {}), ("packed", PACKED, PACKED_OPTIONS)):
+            model = port.AudioAutoencoder.create(**config, **options, num_samples=NUM_SAMPLES, seed=SEED,
+                                                 device=DEVICE)
+            with torch.no_grad():
+                model.encoder.mlp2.bias += LOGIT_SHIFT
+            if name == "flagship":
+                port.save_params(d / "params", model.state_dict())
+                source = ["--params", str(d / "params")]
+            else:
+                port.CheckpointManager(d / "ckpt").save(
+                    "best", {"params": {n: p.detach() for n, p in model.named_parameters()}, "step": 0},
+                    extra={"encoder_lr": 1e-3, "decoder_lr": 1e-4, "complexity_penalty": 0.1,
+                           "model": model.geometry()})
+                source = ["--checkpoint", str(d / "ckpt")]
+            wavs = []
+            for i, clip in enumerate(make_clips(CLIPS, SEED + 900) * CLI_GAIN):
+                wavs.append(str(d / name / f"clip_{i}.wav"))
+                save_wav(wavs[-1], clip[0])
+            runs = []
+            for r in range(CLI_RUNS):
+                tac, out_dir = d / name / f"run_{r}.tac", d / name / f"decoded_{r}"
+                run = {}
+                for cmd, args in (("encode", ["encode", str(tac), *wavs, "--clip-samples", str(NUM_SAMPLES)]),
+                                  ("decode", ["decode", str(tac), str(out_dir)])):
+                    for c in counters.values():
+                        c.launches = 0  # just before the CLI's path
+                    printed = io.StringIO()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(printed):
+                        codec_cli.main([*args, *source, "--batch", str(CLIPS)])
+                    torch.cuda.synchronize()
+                    run[f"{cmd}_s"] = time.perf_counter() - t0
+                    run[f"{cmd}_launches"] = {k: c.launches for k, c in counters.items()}  # just after
+                    run[f"{cmd}_report"] = json.loads(printed.getvalue().strip().splitlines()[-1])
+                    for k in total:
+                        total[k] += run[f"{cmd}_launches"][k]
+                check(sum(run["encode_launches"].values()) == 0, f"codec_cli {name}: encode launched {run}")
+                check(run["decode_launches"]["masked_attention_fwd"] == 1
+                      and sum(run["decode_launches"].values()) == 1, f"codec_cli {name}: decode launches {run}")
+                runs.append(run)
+            bits, header = codec_cli.read_tac(tac)
+            n = config["num_vertices"]
+            want_header = {"vertices": n, "bands": config["num_bands"], "hidden": config["sccn_hidden_dim"],
+                           "layers": config["n_sccn_layers"], "num_clips": CLIPS, "num_samples": NUM_SAMPLES}
+            check({k: header[k] for k in want_header} == want_header and "pack_capacities" not in header,
+                  f"codec_cli {name}: header {header}")
+            check(bits.shape == (CLIPS, math.ceil(sum(model.tables.sizes) / 8)), f"codec_cli {name}: {bits.shape}")
+            check(name != "packed" or bits.shape[1] == PACKED_WIRE_BYTES, f"codec_cli: packed wire {bits.shape}")
+            codec = port.Codec(model, device=DEVICE)
+            windows, _ = codec_cli._load_windows(wavs, NUM_SAMPLES, 16000)
+            direct_bits = port.pack_latent(codec.encode(windows))
+            check(np.array_equal(direct_bits, bits), f"codec_cli {name}: the CLI's bits differ from a direct encode")
+            direct = codec.decode(port.unpack_latent(bits, n), NUM_SAMPLES).cpu().numpy()
+            err = max(float(np.abs(load_wav(out_dir / f"clip_{i}.wav") - np.clip(direct[i, 0], -1.0, 1.0)).max())
+                      for i in range(CLIPS))
+            check(err <= TOL_INT16, f"codec_cli {name}: CLI decode vs Codec.decode {err} > {TOL_INT16}")
+            check(bool(np.isfinite(direct).all()) and float(np.abs(direct).max()) > 1e-3,
+                  f"codec_cli {name}: waveform")
+            last = runs[-1]
+            results[name] = dict(
+                source=source[0], runs=runs, clips=CLIPS, bytes_per_clip=int(bits.shape[1]),
+                active_bits=int(np.unpackbits(bits, axis=-1).sum()), decode_vs_codec_max_abs_err=err,
+                encode_clips_per_s=CLIPS / last["encode_s"], decode_clips_per_s=CLIPS / last["decode_s"])
+            del model, codec
+            torch.cuda.empty_cache()
+    emit("codec_cli", samples=NUM_SAMPLES, tol=TOL_INT16, **results)
+    return total
+
+
+class GridProbe:
+    """Times each VmappedGridTuner.grid_step from outside while the tune
+    runs through Trainer.tune_hyperparameters_vmapped: CUDA events recorded
+    on the stream before and after each call (no added synchronisation),
+    the launch counters' change across each call, and the last call's
+    arguments, for a profile after the run."""
+
+    def __init__(self, torch, counters):
+        from topo_audio_autoencoder_torch.training import tuner
+
+        self.torch, self.counters, self.cls = torch, counters, tuner.VmappedGridTuner
+        self.steps, self.deltas, self.last = [], [], None
+
+    def __enter__(self):
+        torch, probe, inner = self.torch, self, self.cls.grid_step
+        self.inner = inner
+
+        def grid_step(tuner, state, batch, *args, **kw):
+            before = {k: c.launches for k, c in probe.counters.items()}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(tuner, state, batch, *args, **kw)
+            end.record()
+            probe.steps.append((start, end))
+            probe.deltas.append({k: c.launches - before[k] for k, c in probe.counters.items()})
+            probe.last = (tuner, state, batch, args, kw)
+            return out
+
+        self.cls.grid_step = grid_step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.grid_step = self.inner
+
+    def step_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.steps]
+
+
+def phase_tuner(torch, port, counters) -> dict:
+    """The full recipe's tune stage through Trainer.tune_hyperparameters_vmapped
+    at full width (TUNE_GRID, B = 8 x G = 12, bf16, the device corpus,
+    scanned): grid-step ms (events), rows 1 and 2 once each a grid step
+    over K*B elements, row 1 once a val batch, no other kernel (the tuner
+    runs the plain sampler), peak memory, the winner adopted and saved;
+    one more grid step profiled (busy share), and one whose folded
+    attention inputs hold rows 1 and 2 against their plain versions; then
+    the production train step that the sequential tuner runs K times per
+    grid step. Returns the tune's launches."""
+    from topo_audio_autoencoder_torch import data
+    from topo_audio_autoencoder_torch.training import Trainer, TrainerConfig
+
+    k = math.prod(len(v) for v in TUNE_GRID.values())
+    corpus = data.synth_corpus(TUNE_TRAIN + TUNE_VAL, NUM_SAMPLES, seed=SEED + 60)
+    dists = data.compute_distances(corpus[:TUNE_TRAIN], tile=DATA_TILE)
+    train = data.NSynthDataset(corpus[:TUNE_TRAIN], dists["neighbors"], train=True)
+    val = data.NSynthDataset(corpus[TUNE_TRAIN:])
+    g, batch = train.group_size, TUNE_B
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 61, device=DEVICE)
+    tmp = tempfile.TemporaryDirectory()
+    trainer = Trainer(model, train, val, config=TrainerConfig(
+        checkpoint_dir=tmp.name, batch_size=batch, tuning_epochs=1, compute_dtype="bfloat16",
+        scan_steps=TUNE_SCAN, dump_audio=False, checkpoint_every_iters=0))
+    for c in counters.values():
+        c.launches = 0  # just before the tune
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with GridProbe(torch, counters) as probe:
+        best = trainer.tune_hyperparameters_vmapped(TUNE_GRID)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}  # just after
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = probe.step_ms()
+    steps = TUNE_TRAIN // batch
+    val_batches = TUNE_VAL // batch
+    check(len(step_ms) == steps, f"tuner: {len(step_ms)} grid steps, not {steps}")
+    for i, delta in enumerate(probe.deltas):
+        check(delta["masked_attention_fwd"] == 1 and delta["masked_attention_bwd"] == 1
+              and sum(delta.values()) == 2, f"tuner: grid step {i} launched {delta}")
+    check(launches["masked_attention_fwd"] == steps + val_batches and launches["masked_attention_bwd"] == steps
+          and sum(launches.values()) == 2 * steps + val_batches, f"tuner: launches {launches}")
+    check(best in [dict(zip(("encoder_lr", "decoder_lr", "complexity_penalty"), c))
+                   for c in itertools.product(*TUNE_GRID.values())], f"tuner: best {best}")
+    check(trainer.metrics.best_params == best and (Path(tmp.name) / "best_tuning" / "state.pt").exists(),
+          "tuner: best_tuning not written")
+    check(all(bool(torch.isfinite(p).all()) for p in trainer.model.parameters()), "tuner: adopted parameters")
+    tuner, state, gbatch, args, kw = probe.last
+    check(tuple(gbatch.shape) == (batch, g, 1, NUM_SAMPLES), f"tuner: grid batch {tuple(gbatch.shape)}")
+    profiled = trace_call(torch, lambda: tuner.grid_step(state, gbatch, *args, **kw),
+                          f"one vmapped grid step (K={k}, bf16, B={batch}, G={g})")
+    grid_attention(torch, tuner, state, gbatch, args, kw, k * batch)
+    del tuner, state, probe
+    # The sequential tuner's unit: the production step (one combo) on the
+    # same index batches.
+    idx = list(data.index_iterator(train, batch, seed=trainer.cfg.seed, epoch=0))
+    temp = port.anneal_temperature(0)
+    trainer.state = trainer.init_state()
+    seq = []
+    for i in range(TUNE_SEQ_STEPS + 1):  # the first warms up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(trainer.state, idx[i % len(idx)], temp, trainer.run_seed)
+        end.record()
+        seq.append((start, end))
+    torch.cuda.synchronize()
+    seq_ms = [s.elapsed_time(e) for s, e in seq]
+    grid_ms = statistics.median(step_ms[1:])
+    single_ms = statistics.median(seq_ms[1:])
+    tmp.cleanup()
+    emit("tuner", config=FLAGSHIP, grid=TUNE_GRID, combos=k, batch=batch, group=g, dtype="bfloat16",
+         clips=dict(train=TUNE_TRAIN, val=TUNE_VAL), scan_steps=TUNE_SCAN, wall_s=wall_s, best=best,
+         grid_step_ms=step_ms, grid_step_ms_median=grid_ms, launches=launches,
+         attention_elements=k * batch, peak_mem_gib=peak_gib,
+         device_busy_share_profiled=profiled["device_busy_share_profiled"], profiled_step=profiled,
+         sequential_step_ms=seq_ms, sequential_step_ms_median=single_ms,
+         sequential_grid_ms=k * single_ms, speedup_vs_sequential=k * single_ms / grid_ms)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_tol(values) -> float:
+    """TOL_BF16 at the largest output these values allow: an attention
+    output is a convex combination of rows of V, and one bf16 ulp doubles
+    with each binade above |o| = 2 (TOL_BF16's range)."""
+    top = float(values.float().abs().max())
+    return TOL_BF16 * 2.0 ** max(0, math.ceil(math.log2(top / 2))) if top > 0 else TOL_BF16
+
+
+def grid_attention(torch, tuner, state, batch, args, kw, elements: int) -> None:
+    """Rows 1 and 2 on the inputs one more vmapped grid step hands them:
+    MaskedAttention's forward and backward are wrapped to keep q, k, v, the
+    mask and dO as the vmap rule's fold gives them ([K*B, ...], bf16, the
+    mask copied K times where it is not vmapped); then each kernel is held
+    against its plain version on those tensors (forward at bf16_tol,
+    backward at TOL_BWD's bf16 bound)."""
+    from unittest import mock
+
+    from topo_audio_autoencoder_torch.ops import attention
+
+    fn = attention.MaskedAttention
+    inner_fwd, inner_bwd = fn.forward, fn.backward
+    cap = {}
+
+    def forward(query, keys, values, key_mask, num_heads):
+        cap.update(q=query.detach().clone(), k=keys.detach().clone(), v=values.detach().clone(),
+                   mask=key_mask.detach().clone(), h=num_heads, calls=cap.get("calls", 0) + 1)
+        return inner_fwd(query, keys, values, key_mask, num_heads)
+
+    def backward(ctx, dout, dlse):
+        cap["dout"] = dout.detach().clone()
+        return inner_bwd(ctx, dout, dlse)
+
+    with mock.patch.object(fn, "forward", staticmethod(forward)), \
+            mock.patch.object(fn, "backward", staticmethod(backward)):
+        tuner.grid_step(state, batch, *args, **kw)
+        torch.cuda.synchronize()
+    h = cap["h"]
+    q, k, v, mask = (cap[n].contiguous() for n in ("q", "k", "v", "mask"))
+    dout = cap["dout"].to(q.dtype).contiguous()
+    check(cap["calls"] == 1 and q.shape[0] == elements and q.dtype == torch.bfloat16,
+          f"tuner attention: {cap['calls']} forward calls, q {tuple(q.shape)} {q.dtype}, not one over {elements}")
+    shape = dict(b=q.shape[0], q=q.shape[1], m=k.shape[1], c=q.shape[2], h=h)
+    with torch.inference_mode():
+        fwd = measure_attention(torch, attention, q, k, v, mask, h, bf16_tol(v))
+    bwd = measure_attention_bwd(torch, attention, q, k, v, mask, dout, h)
+    emit("kernel", kernel="masked_attention_fwd", inputs="vmapped grid step", shape=shape, results=[fwd])
+    emit("kernel", kernel="masked_attention_bwd", inputs="vmapped grid step", shape=shape, results=[bwd])
+
+
+def phase_tuner_parity(torch, port, training, counters) -> None:
+    """One K = 2 grid step on the card against two single-combo steps of the
+    port (``make_loss_and_grads`` on a model holding that combo's weights)
+    on the same batch and uniforms, cuDNN deterministic: each combo's loss,
+    its whole gradient where conditioned (train_parity's nudge rule, here
+    on the card), and every leaf of the surrogate (the grid with its loss
+    replaced by train_parity's surrogate); rows 1 and 2 once each a grid
+    step over 4 elements."""
+    from unittest import mock
+
+    from topo_audio_autoencoder_torch.training import tuner as tuner_mod
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 62, device=DEVICE,
+                                             dropout=0.0)
+        tuner = tuner_mod.VmappedGridTuner(model)
+        state = tuner.init_grid(PARITY_GRID, seed=SEED + 63)
+        k = state.encoder_lr.shape[0]
+        rng = np.random.default_rng(SEED + 64)
+        batch = torch.from_numpy(make_clips(2 * TRAIN_G, SEED + 410).reshape(2, TRAIN_G, 1, NUM_SAMPLES)).to(DEVICE)
+        noise = torch.from_numpy(rng.uniform(1e-6, 1 - 1e-6, (k, 2, model.tables.total_simplices))
+                                 .astype(np.float32)).to(DEVICE)
+        w = torch.from_numpy(rng.standard_normal((2, 1, NUM_SAMPLES)).astype(np.float32)).to(DEVICE)
+
+        def sur_loss(recon, target, aux, valid, weights, contrastive=None, **kw):
+            val = (recon * w).sum() + aux["binary_entropy"].mean() + aux["diversity"].mean()
+            return (val + contrastive if contrastive is not None else val), {}
+
+        deltas = []
+        for c in counters.values():
+            c.launches = 0
+        losses, grads = tuner.loss_and_grads(state, batch, TEMPERATURE, noise={"noise": noise})
+        deltas.append({n: c.launches for n, c in counters.items()})
+        for c in counters.values():
+            c.launches = 0
+        with mock.patch.object(tuner_mod, "autoencoder_loss", sur_loss):
+            sur_vals, sur_grads = tuner.loss_and_grads(state, batch, TEMPERATURE, noise={"noise": noise})
+        deltas.append({n: c.launches for n, c in counters.items()})
+        combos = []
+        for i in range(k):
+            single = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 65, device=DEVICE,
+                                                  dropout=0.0, use_fused_sampler=False)
+            with torch.no_grad():
+                for n, p in single.named_parameters():
+                    p.copy_(state.params[n][i])
+            weights = training.LossWeights(complexity_penalty=float(state.complexity_penalty[i]))
+            total, _, want = training.make_loss_and_grads(single, weights)(batch, TEMPERATURE, SEED, 0, noise[i])
+
+            def l2(ts):
+                return math.sqrt(sum(float((t.double() ** 2).sum()) for t in ts))
+
+            grad_err = l2(grads[n][i] - want[n] for n in want) / l2(want.values())
+            floor = None
+            if grad_err > PARITY_GRAD_REL_L2:
+                nudged = training.make_loss_and_grads(single, weights)(
+                    batch * (1 + FLOOR_NUDGE), TEMPERATURE, SEED, 0, noise[i])[2]
+                floor = l2(nudged[n] - want[n] for n in want) / l2(want.values())
+            names, params = zip(*single.named_parameters())
+            val, _, _ = surrogate(torch, single, batch, noise[i], w)
+            sgrads = dict(zip(names, torch.autograd.grad(val, params)))
+            scale = max(float(gr.abs().max()) for gr in sgrads.values())
+            leaf_err = {n: float((sur_grads[n][i] - sgrads[n]).abs().max()) / scale for n in names}
+            worst = max(leaf_err, key=leaf_err.get)
+            combos.append(dict(
+                loss=float(losses[i]), loss_rel_err=abs(float(losses[i]) - float(total)) / abs(float(total)),
+                grad_rel_l2=grad_err, grad_nudge_floor=floor, grad_conditioned=floor is None or floor <= PARITY_GRAD_REL_L2,
+                surrogate_value_rel_err=abs(float(sur_vals[i]) - float(val.detach())) / abs(float(val.detach())),
+                surrogate_leaf_max_err=leaf_err[worst], surrogate_worst_leaf=worst))
+            del single
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit("tuner_parity", config=FLAGSHIP, grid=PARITY_GRID, anchors=2, group=TRAIN_G, cudnn_deterministic=True,
+         combos=combos, launches=deltas, loss_rtol=PARITY_LOSS_RTOL, grad_rel_l2_tol=PARITY_GRAD_REL_L2,
+         surrogate_tol=SURROGATE_TOL)
+    for i, c in enumerate(combos):
+        check(c["loss_rel_err"] <= PARITY_LOSS_RTOL, f"tuner_parity combo {i}: loss {c}")
+        check(c["grad_rel_l2"] <= PARITY_GRAD_REL_L2 or not c["grad_conditioned"], f"tuner_parity combo {i}: {c}")
+        check(c["surrogate_value_rel_err"] <= PARITY_LOSS_RTOL and c["surrogate_leaf_max_err"] <= SURROGATE_TOL,
+              f"tuner_parity combo {i}: surrogate {c}")
+    for delta in deltas:
+        check(delta["masked_attention_fwd"] == 1 and delta["masked_attention_bwd"] == 1
+              and sum(delta.values()) == 2, f"tuner_parity: a grid step launched {delta}")
+
+
 def kernel_entry(name, source, replaces, launches, result) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2978,18 +3371,26 @@ def main() -> int:
         phase_trainer_resume(torch, port, counters)
         torch.cuda.empty_cache()
         phase_epoch_b128(torch, port, counters)
+        torch.cuda.empty_cache()
+        cli_launches = phase_codec_cli(torch, port, counters)
+        tuner_launches = phase_tuner(torch, port, counters)
+        phase_tuner_parity(torch, port, training, counters)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
     emit("profiler", **PROFILES)
     csrc = "topo_audio_autoencoder_torch/csrc/"
+    # Rows 1 and 2 run on three paths of this slice: trainer_main, the
+    # codec CLI and the vmapped tuner, each counted from zero.
+    path_launches = {name: trainer_launches[name] + cli_launches[name] + tuner_launches[name]
+                     for name in ("masked_attention_fwd", "masked_attention_bwd")}
     print(json.dumps({"kernels": [
         kernel_entry("masked_attention_fwd", csrc + "masked_attention_fwd.cu",
                      "topo_audio_autoencoder_tpu/ops/attention.py:54",
-                     trainer_launches["masked_attention_fwd"], fwd),
+                     path_launches["masked_attention_fwd"], fwd),
         kernel_entry("masked_attention_bwd", csrc + "masked_attention_bwd.cu",
                      "topo_audio_autoencoder_tpu/ops/attention.py:122",
-                     trainer_launches["masked_attention_bwd"], bwd),
+                     path_launches["masked_attention_bwd"], bwd),
         kernel_entry("binary_gumbel", csrc + "binary_gumbel.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:216",
                      trainer_launches["binary_gumbel"], sampler),

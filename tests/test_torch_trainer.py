@@ -555,9 +555,6 @@ def test_not_ported_paths_raise(tmp_path, model, corpus):
     for kw in (dict(data_parallel=True, n_devices=2), dict(shard_corpus=True)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             Trainer(model, train, val, config=_config(tmp_path, **kw))
-    trainer = Trainer(model, train, val, config=_config(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        trainer.tune_hyperparameters_vmapped(GRID)
     opt = make_optimizer()
     for kw in (dict(mesh=object()), dict(shard_corpus=True)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_masked_attention
+from ..ops.attention import fold_vmapped, fused_masked_attention
 from ..topology.builder import SimplicialOperators
 from ..topology.rectifier import index_adjoint
 from .encoder import gelu, group_norm, layer_norm
@@ -58,12 +58,24 @@ def _resize_plan(t: int, out_len: int, device: torch.device) -> tuple:
 
 class _Resize(torch.autograd.Function):
     """``x[..., i0, :] * (1 - w) + x[..., i1, :] * w``; the backward sums
-    each step's two weighted cotangent rows over ``adjoint``."""
+    each step's two weighted cotangent rows over ``adjoint``. Under
+    ``torch.func.vmap`` the vmapped axis becomes one more leading axis of
+    ``x`` (one call for all K)."""
 
     @staticmethod
-    def forward(ctx, x, i0, i1, w, adjoint):
-        ctx.save_for_backward(w, adjoint)
+    def forward(x, i0, i1, w, adjoint):
         return x[..., i0, :] * (1.0 - w) + x[..., i1, :] * w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, _, w, adjoint = inputs
+        ctx.save_for_backward(w, adjoint)
+
+    @staticmethod
+    def vmap(info, in_dims, x, i0, i1, w, adjoint):
+        if any(d is not None for d in in_dims[1:]):
+            raise ValueError("linear_resize: only x may be vmapped, not the resize plan")
+        return _Resize.apply(x.movedim(in_dims[0], 0), i0, i1, w, adjoint), 0
 
     @staticmethod
     def backward(ctx, g):
@@ -82,16 +94,26 @@ def linear_resize(x: torch.Tensor, out_len: int) -> torch.Tensor:
 class _MaskedResize(torch.autograd.Function):
     """Per-row ``gather(x, i0) * (1 - w) + gather(x, i1) * w`` over
     [B, T, C]; the backward is the product with the transposed [B, out, T]
-    interpolation matrix."""
+    interpolation matrix. Under ``torch.func.vmap`` the vmapped axis folds
+    into B (one call over K*B rows)."""
 
     @staticmethod
-    def forward(ctx, x, i0, i1, w):
-        ctx.save_for_backward(i0, i1, w)
-        ctx.steps = x.shape[1]
+    def forward(x, i0, i1, w):
         c = x.shape[-1]
         g0 = torch.gather(x, 1, i0[..., None].expand(-1, -1, c))
         g1 = torch.gather(x, 1, i1[..., None].expand(-1, -1, c))
         return g0 * (1.0 - w) + g1 * w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, i0, i1, w = inputs
+        ctx.save_for_backward(i0, i1, w)
+        ctx.steps = x.shape[1]
+
+    @staticmethod
+    def vmap(info, in_dims, x, i0, i1, w):
+        y = _MaskedResize.apply(*fold_vmapped(info, in_dims, x, i0, i1, w))
+        return y.reshape(info.batch_size, -1, *y.shape[1:]), 0
 
     @staticmethod
     def backward(ctx, g):

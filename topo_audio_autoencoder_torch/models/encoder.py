@@ -58,16 +58,20 @@ def group_norm(groups: int, channels: int) -> nn.GroupNorm:
     return nn.GroupNorm(groups, channels, eps=FLAX_NORM_EPS)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None, noise: torch.Tensor | None = None
+) -> torch.Tensor:
     """Inverted dropout as ``flax.linen.Dropout``: keep with probability
     1 - rate and scale the kept values by 1 / (1 - rate). The keep mask is
+    ``u >= rate`` for uniforms ``u``: ``noise`` when given (x's shape), else
     drawn from ``generator`` on its own device."""
     if rate == 0.0:
         return x
-    if generator is None:
-        raise ValueError("dropout in training needs a generator")
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
-    keep = (u >= rate).to(x.device)
+    if noise is None:
+        if generator is None:
+            raise ValueError("dropout in training needs a generator or noise")
+        noise = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = (noise >= rate).to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -238,11 +242,17 @@ class AudioEncoder(nn.Module):
         )
 
     def compute_logits(
-        self, bands: torch.Tensor, train: bool = False, generator: torch.Generator | None = None
+        self,
+        bands: torch.Tensor,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        dropout_noise: tuple | None = None,
     ) -> torch.Tensor:
         """[B, T, num_bands] (channels-last PQMF bands) -> [B, S_total].
         In training, dropout after both hidden MLP layers, drawn from
-        ``generator``."""
+        ``generator``, or from ``dropout_noise``: the two layers' uniforms
+        ([B, 2048] and [B, 1024]), as ``generator`` would draw them."""
+        noise0, noise1 = dropout_noise if dropout_noise is not None else (None, None)
         rate = self.dropout if train else 0.0
         x = self.band_encoder.forward_ncw(bands.transpose(1, 2))  # [B, 16nb, T/8]
         # Skip: max over adjacent channel pairs, 16nb -> 8nb channels.
@@ -256,8 +266,8 @@ class AudioEncoder(nn.Module):
         y = gelu(self.red_norm2(self.red2(y)))  # [B, 8nb, frames]
         # Flatten in the JAX package's channels-last order.
         y = y.transpose(1, 2).reshape(b, -1)
-        y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator)
-        y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator)
+        y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator, noise0)
+        y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator, noise1)
         return self.mlp2(y)  # [B, S_total]
 
     def embed(self, probs: RectifiedProbs, idx=(None,) * 4) -> tuple:

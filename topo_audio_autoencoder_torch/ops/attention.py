@@ -364,18 +364,45 @@ def attention_fwd(query, keys, values, key_mask, num_heads):
 attention_fwd.launches = 0
 
 
+def fold_vmapped(info, in_dims, *tensors) -> list:
+    """The inputs of a custom Function's ``vmap`` rule with the vmapped
+    axis folded into their leading (batch) axis: [K, B, ...] -> [K*B, ...].
+    An input that is not vmapped is repeated K times."""
+    k = info.batch_size
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.movedim(d, 0) if d is not None else t.expand(k, *t.shape)
+        out.append(t.reshape(k * t.shape[1], *t.shape[2:]))
+    return out
+
+
 class MaskedAttention(torch.autograd.Function):
     """``attention_fwd`` forward, ``attention_bwd`` backward. Saves q, k, v,
     the mask, the output and L; the mask and the head count take no
-    gradient. CPU tensors run the plain versions, CUDA tensors the kernels."""
+    gradient. CPU tensors run the plain versions, CUDA tensors the kernels.
+
+    Under ``torch.func.vmap`` the vmapped axis folds into the batch axis:
+    one call over K*B elements, so the forward and the backward each launch
+    once for all K, as the TPU kernel runs under ``jax.vmap``."""
 
     @staticmethod
-    def forward(ctx, query, keys, values, key_mask, num_heads):
-        out, lse = attention_fwd(query, keys, values, key_mask, num_heads)
+    def forward(query, keys, values, key_mask, num_heads):
+        return attention_fwd(query, keys, values, key_mask, num_heads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        query, keys, values, key_mask, num_heads = inputs
+        out, lse = output
         ctx.save_for_backward(query, keys, values, key_mask, out, lse)
         ctx.num_heads = num_heads
         ctx.mark_non_differentiable(lse)
-        return out, lse
+
+    @staticmethod
+    def vmap(info, in_dims, query, keys, values, key_mask, num_heads):
+        k = info.batch_size
+        q, kk, v, m = fold_vmapped(info, in_dims[:4], query, keys, values, key_mask)
+        out, lse = MaskedAttention.apply(q.contiguous(), kk.contiguous(), v.contiguous(), m, num_heads)
+        return (out.reshape(k, -1, *out.shape[1:]), lse.reshape(k, -1, *lse.shape[1:])), (0, 0)
 
     @staticmethod
     def backward(ctx, dout, _dlse):

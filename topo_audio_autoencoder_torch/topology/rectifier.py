@@ -85,12 +85,23 @@ def face_adjoints(tables: ComplexTables, device: torch.device) -> tuple:
 
 class _FaceGather(torch.autograd.Function):
     """``x[..., face_idx]``: [..., F] -> [..., S, k]. The backward sums each
-    face's cotangents over its ``adjoint`` positions in their fixed order."""
+    face's cotangents over its ``adjoint`` positions in their fixed order.
+    Under ``torch.func.vmap`` the vmapped axis becomes one more leading
+    axis of ``x`` (one call for all K)."""
 
     @staticmethod
-    def forward(ctx, x, face_idx, adjoint):
-        ctx.save_for_backward(adjoint)
+    def forward(x, face_idx, adjoint):
         return x[..., face_idx]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
+
+    @staticmethod
+    def vmap(info, in_dims, x, face_idx, adjoint):
+        if any(d is not None for d in in_dims[1:]):
+            raise ValueError("the face gather: only x may be vmapped, not the face tables")
+        return _FaceGather.apply(x.movedim(in_dims[0], 0), face_idx, adjoint), 0
 
     @staticmethod
     def backward(ctx, g):

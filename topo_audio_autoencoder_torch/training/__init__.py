@@ -1,5 +1,5 @@
 """Training layer: objective, steps and optimizer, trainer shell,
-checkpointing."""
+vmapped grid tuner, checkpointing."""
 
 from .losses import LossWeights, autoencoder_loss
 from .metrics import MetricWriter, TrainingMetrics
@@ -20,6 +20,7 @@ from .train_step import (
     make_train_step,
 )
 from .trainer import Trainer, TrainerConfig
+from .tuner import VmappedGridTuner
 
 __all__ = [
     "CheckpointManager",
@@ -31,6 +32,7 @@ __all__ = [
     "Trainer",
     "TrainerConfig",
     "TrainingMetrics",
+    "VmappedGridTuner",
     "anneal_temperature",
     "autoencoder_loss",
     "component_grad_norms",

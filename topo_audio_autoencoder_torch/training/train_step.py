@@ -125,15 +125,27 @@ class Optimizer:
 
     def _apply(self, grads: dict, state: OptState, params: dict) -> None:
         state.count += 1
-        # Bias corrections in fp32, as optax computes decay ** count.
-        bc1 = float(1.0 - torch.tensor(ADAM_B1) ** state.count)
-        bc2 = float(1.0 - torch.tensor(ADAM_B2) ** state.count)
+        corrections = bias_corrections(state.count)
         for name, g in grads.items():
-            mu = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu[name]
-            nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[name]
-            state.mu[name], state.nu[name] = mu, nu
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+            update = adam_update(g, state, name, corrections)
             params[name].add_(update * -self.learning_rate(name))
+
+
+def bias_corrections(count: int) -> tuple[float, float]:
+    """Adam's bias corrections 1 - decay ** count, in fp32 as optax computes
+    them."""
+    return float(1.0 - torch.tensor(ADAM_B1) ** count), float(1.0 - torch.tensor(ADAM_B2) ** count)
+
+
+def adam_update(g: torch.Tensor, state: OptState, name: str, corrections: tuple) -> torch.Tensor:
+    """optax.scale_by_adam on one leaf: updates the moments ``state.mu[name]``
+    and ``state.nu[name]`` with the gradient ``g`` and returns the
+    normalized update (before the learning rate)."""
+    bc1, bc2 = corrections
+    mu = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu[name]
+    nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[name]
+    state.mu[name], state.nu[name] = mu, nu
+    return (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
 
 
 def make_optimizer(

@@ -38,9 +38,10 @@ What differs, and why:
 - An asynchronous save first clones every parameter and moment on the
   device (the next step overwrites the live ones), then a thread copies
   the clones to the host on a side stream that waits for them, and writes.
-- Data-parallel training (``data_parallel``, ``shard_corpus``) and the
-  vmapped tuner are not ported yet (ROADMAP.md, Queue 1 item 6): they raise
-  ``NotImplementedError``.
+- Data-parallel training (``data_parallel``, ``shard_corpus``) is not
+  ported yet (ROADMAP.md, Queue 1 item 6): it raises
+  ``NotImplementedError``. ``tune_hyperparameters_vmapped`` runs the
+  vmapped grid tuner (``training/tuner.py``) on one device.
 
 No interactive prompts: everything is constructor config. The trainer runs
 on ``config.device``: the CUDA card unless it says ``"cpu"``.
@@ -79,7 +80,7 @@ from .train_step import (
     make_train_step,
 )
 
-NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 6: DistributedDataParallel and training/tuner.py)"
+NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 6: DistributedDataParallel)"
 
 
 def split_key(key) -> tuple[list, int]:
@@ -500,8 +501,54 @@ class Trainer:
     # ------------------------------------------------------------ tuner
 
     def tune_hyperparameters_vmapped(self, hyper_params: dict) -> dict | None:
-        """Grid search with every combo trained at once: not ported yet."""
-        raise NotImplementedError(f"tune_hyperparameters_vmapped {NOT_PORTED}")
+        """Grid search with every combo trained simultaneously as a vmap
+        axis (see training/tuner.py): one step advances the whole grid. No
+        per-combo checkpoint resume. Adopts the winning combo's parameters
+        and learning rates and saves them as ``best_tuning``."""
+        from .tuner import VmappedGridTuner
+
+        cfg = self.cfg
+        tuner = VmappedGridTuner(
+            self.model,
+            gradient_clip_val=cfg.gradient_clip_val,
+            compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
+        )
+        # device_corpus: send [B, G] indices per step and gather the rows on
+        # the device, exactly like the production train loop.
+        make_iter = index_iterator if cfg.device_corpus else batch_iterator
+        result = tuner.tune(
+            hyper_params,
+            train_batches=lambda e: make_iter(
+                self.train_dataset, cfg.batch_size, seed=cfg.seed, epoch=e
+            ),
+            val_batches=lambda: make_iter(
+                self.val_dataset, cfg.batch_size, shuffle=False
+            ),
+            epochs=cfg.tuning_epochs,
+            seed=cfg.seed,
+            initial_temp=cfg.initial_temp,
+            min_temp=cfg.min_temp,
+            temp_decay=cfg.temp_decay,
+            corpus=self._train_corpus() if cfg.device_corpus else None,
+            val_corpus=(
+                self.val_dataset.waveforms if cfg.device_corpus else None
+            ),
+            scan_steps=cfg.scan_steps if cfg.device_corpus else 0,
+        )
+        best = result["best_params"]
+        self.metrics.best_params = best
+        self.metrics.save(self.checkpoint_dir)
+        # adopt the winning combo's trained params as the starting point
+        k = result["best_index"]
+        self._build(
+            best["encoder_lr"], best["decoder_lr"], best["complexity_penalty"]
+        )
+        self.state = self.init_state()
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.copy_(result["state"].params[name][k])
+        self.save_checkpoint("best_tuning")
+        return best
 
     def tune_hyperparameters(self, hyper_params: dict) -> dict | None:
         """Grid search with per-combo resume."""

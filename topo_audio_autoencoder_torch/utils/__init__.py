@@ -1,0 +1,25 @@
+"""Utilities: profiling, debug instrumentation.
+
+Port of ``topo_audio_autoencoder_tpu.utils``, with the same public names."""
+
+from .debug import (
+    assert_finite_tree,
+    detect_anomalies,
+    checked,
+    finite_or_zero,
+    golden_precision,
+)
+from .profiling import chain_time, fetch_scalar, time_fn, trace, wait_for_backend
+
+__all__ = [
+    "assert_finite_tree",
+    "detect_anomalies",
+    "checked",
+    "finite_or_zero",
+    "golden_precision",
+    "chain_time",
+    "fetch_scalar",
+    "time_fn",
+    "trace",
+    "wait_for_backend",
+]
