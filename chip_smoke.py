@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's codec, codec CLI, train step, trainer and
-vmapped grid tuner on one CUDA card and hold its kernels against their
-plain versions.
+"""Drive the PyTorch port's codec, codec CLI, train step, trainer, vmapped
+grid tuner and data parallelism on one CUDA card and hold its kernels
+against their plain versions.
 
     python3 chip_smoke.py
 
@@ -167,15 +167,37 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 25. tuner_parity  one K = 2 grid step (fp32, B=2, G=3, cuDNN
             deterministic) against two single-combo steps of the port on
             the same weights and uniforms, at train_parity's bounds.
-26. profiler  how many kernel profiles the run took, and which of them
+26. dp_philox  rows 3-5 at [16, 6195], fp32 and bf16, drawing a
+            data-parallel rank's 8 rows with first = its first row x 6,195
+            (row 8, and row 1: an odd start): the rows of the first = 0
+            draw bit for bit, the uniforms the plain Philox stream from
+            first bit for bit, the output its plain relaxation; times
+            (events) at first 0, 8 x 6,195 and 6,195.
+27. dp1      data parallelism over NCCL at world size 1: the Trainer with
+            data_parallel (the replicated corpus, then shard_corpus) at
+            trainer_main's settings, 2 epochs on 28 + 4 clips, cuDNN
+            deterministic, against the run without it: every loss, the best
+            epoch, every parameter and moment bit for bit; rows 1-3 once a
+            trainer step; step ms by events. The vmapped tuner on a mesh of
+            one against the tuner without one, bit for bit.
+28. dp2      two processes on the one card over gloo (NCCL refuses two
+            ranks on a device), the flagship step at full width, global
+            B = 16 x G = 3 (8 a rank), 3 steps over the replicated corpus,
+            against the world-1 step on the same weights and seed: losses,
+            masks, the whole gradient where conditioned, every leaf of the
+            surrogate, the accumulator; rows 1-3 once a rank a step; step
+            ms (events) and the gradient's all-reduce alone (host clock).
+            A rank that fails or outlives its deadline fails the run.
+29. profiler  how many kernel profiles the run took, and which of them
             recorded no device activity at first and were taken again.
-27. kernels  one line per kernel: route, source, launches (rows 1 and 2:
+30. kernels  one line per kernel: route, source, launches (rows 1 and 2:
             trainer_main's first run + the codec CLI's runs + the tuner's
-            run; row 3 and 3's backward: trainer_main's first run; the
-            others their train step; combine_diag's ladder for rows 8-10),
-            error, times (at its train step's shape; the ladder's for rows
-            8-10). The samplers' backward kernels stand in the line under
-            the JAX VJPs they replace (_bg_bwd, _hc_bwd, _hcl_bwd).
+            run + dp1's data-parallel run + dp2's two ranks; row 3 and 3's
+            backward: trainer_main's first run + dp1's + dp2's; the others
+            their train step; combine_diag's ladder for rows 8-10), error,
+            times (at its train step's shape; the ladder's for rows 8-10).
+            The samplers' backward kernels stand in the line under the JAX
+            VJPs they replace (_bg_bwd, _hc_bwd, _hcl_bwd).
 
 Then the nvidia-smi line and, last, {"ok": true, "device": ...}. Any failed
 check exits non-zero before the last line. Without a card it exits 2.
@@ -453,6 +475,28 @@ TUNE_SEQ_STEPS = 10
 # same weights and uniforms, at train_parity's bounds (loss, the whole
 # gradient where conditioned, every surrogate leaf).
 PARITY_GRID = {"encoder_lr": [1e-3, 5e-4], "decoder_lr": [1e-4], "complexity_penalty": [0.1]}
+# Data parallelism. dp_philox: rows 3-5 at [16, 6195], fp32 and bf16, a
+# rank's 8 rows drawn with first = its first row x 6,195: row 8 (rank 1 of
+# 2) and row 1 (first = 6,195, odd: every other Hard Concrete thread's pair
+# crosses two Philox groups), against those rows of the first = 0 draw.
+DP_FIRST_ROWS = (8, 1)
+# dp1: Trainer(data_parallel=True) over NCCL at world size 1, at
+# trainer_main's settings (TrainerConfig's defaults: G = 12, batch 4,
+# accumulation 4, fp32) on trainer_resume's 28 + 4 clips for 2 epochs,
+# cuDNN deterministic, with the replicated and the sharded corpus, against
+# the same run without data parallelism; then the vmapped tuner on a mesh of
+# one against the tuner without it (tuner_parity's grid and batch, 2 grid
+# steps, dropout on).
+DP1_EPOCHS = 2
+# dp2: two processes on the one card over gloo (NCCL refuses two ranks on
+# one device), the flagship step at full width, fp32, global B = 16 x G = 3
+# (8 a rank), the replicated corpus, DP2_STEPS steps with accumulation 4 (no
+# update within them, so every step's loss is held), against the world-1
+# step on the same weights and seed, with train_parity's bounds.
+DP2_B, DP2_STEPS, DP2_RANKS = 16, 3, 2
+DP_TIMEOUT_S = 300  # every collective of dp2
+DP2_JOIN_S = 600  # the children's deadline
+
 # The kernels a Gumbel step launches once each, beside the attention's.
 GUMBEL_EXPECT = {"binary_gumbel": 1, "binary_gumbel_bwd": 1}
 # The Hard Concrete kernels, forward and backward (rows 4 and 5).
@@ -3240,6 +3284,394 @@ def phase_tuner_parity(torch, port, training, counters) -> None:
               and sum(delta.values()) == 2, f"tuner_parity: a grid step launched {delta}")
 
 
+def phase_dp_philox(torch, fused, hc, n_simplices: int) -> dict:
+    """Rows 3-5 drawing a data-parallel rank's rows: at [16, 6195], fp32 and
+    bf16, the 8 rows from row r (first = r x 6,195) must equal rows r..r+7
+    of the first = 0 draw bit for bit (output and uniforms: the kernels are
+    elementwise), the uniforms the plain ``philox_uniform(first=)`` bit for
+    bit, and the output its plain relaxation within the kernel phases'
+    tolerance (torch's log and sigmoid are not the kernels' logf and expf).
+    Times (CUDA events, the kernel phases' method) at [16, 6195] with first
+    0, 8 x 6,195 and 6,195."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 80)
+    rows = stretch_rows(torch, n_simplices, rng)
+    samplers = {
+        "binary_gumbel": (lambda x, **kw: fused.binary_gumbel_sample(x, TEMPERATURE, **kw),
+                          lambda x, u: fused.binary_gumbel_plain(x, u, TEMPERATURE), None),
+        "hard_concrete": (lambda x, **kw: hc.hard_concrete_sample(x, HC_BETA, **kw),
+                          lambda x, u: hc.hard_concrete_plain(x, u, HC_BETA), 0),
+        "hard_concrete_learned": (lambda x, **kw: hc.hard_concrete_learned_sample(x, *rows, **kw),
+                                  lambda x, u: hc.hard_concrete_learned_plain(x, u, *rows), 3 * n_simplices * 4),
+    }
+    half = TRAIN_B // 2
+    out = {}
+    for kernel, (sample, plain, row_bytes) in samplers.items():
+        results = []
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            x = torch.from_numpy(rng.normal(0.5, 2.0, (TRAIN_B, n_simplices)).astype(np.float32)).to(dev, dtype)
+            whole, u_whole = sample(x, seed=SEED, offset=13, return_noise=True)
+            err = 0.0
+            for r in DP_FIRST_ROWS:
+                block = x[r : r + half].contiguous()
+                first = r * n_simplices
+                got, u = sample(block, seed=SEED, offset=13, first=first, return_noise=True)
+                torch.cuda.synchronize()
+                check(torch.equal(u, u_whole[r : r + half]) and torch.equal(got, whole[r : r + half]),
+                      f"dp_philox {kernel} {name}: rows {r}.. with first={first} differ from the global draw")
+                want_u = fused.philox_uniform(block.numel(), SEED, 13, dev, first).reshape(block.shape)
+                check(torch.equal(u, want_u), f"dp_philox {kernel} {name}: uniforms from first={first} differ "
+                                              "from the plain Philox stream")
+                err = max(err, (got.float() - plain(block, u).float()).abs().max().item())
+            check(err <= TOL_SAMPLER[name], f"dp_philox {kernel} {name}: max abs err {err} > {TOL_SAMPLER[name]}")
+            ms = {f"first_{f}": time_ms(lambda f=f: sample(x, seed=SEED, offset=13, first=f))
+                  for f in (0, half * n_simplices, n_simplices)}
+
+            def plain_call():
+                u = fused.philox_uniform(x.numel(), SEED, 13, dev, n_simplices).reshape(x.shape)
+                return plain(x, u)
+
+            n, elt = x.numel(), x.element_size()
+            bound_ms, bound_by = sampler_bound(n, elt) if row_bytes is None else hc_bound(n, elt, row_bytes)
+            results.append(dict(dtype=name, max_abs_err=err, tol=TOL_SAMPLER[name], ms=ms, plain_ms=time_ms(plain_call),
+                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        out[kernel] = results
+    emit("dp_philox", shape=[TRAIN_B, n_simplices], rank_rows=half, first_rows=list(DP_FIRST_ROWS),
+         rows_bit_for_bit=True, uniforms_bit_for_bit=True, results=out)
+    return out
+
+
+def run_state(trainer) -> dict:
+    """A finished run's state on the host: parameters, moments, counters."""
+    opt = trainer.state.opt_state
+    return dict(params={n: p.detach().cpu() for n, p in trainer.model.named_parameters()},
+                moments={n: (opt.mu[n].cpu(), opt.nu[n].cpu()) for n in opt.mu},
+                counters=(opt.count, opt.mini_step, trainer.state.step))
+
+
+def differing(a: dict, b: dict) -> list:
+    """The names whose tensors (or tuples of tensors) differ in any bit."""
+    import torch
+
+    def same(x, y):
+        return all(map(torch.equal, x, y)) if isinstance(x, tuple) else torch.equal(x, y)
+
+    return sorted(n for n in a if not same(a[n], b[n]))
+
+
+def phase_dp1(torch, port, counters) -> dict:
+    """Data parallelism over NCCL at world size 1 (one card): the Trainer
+    with data_parallel (the replicated corpus, then shard_corpus) against
+    the same run without it, cuDNN deterministic; every loss, the best
+    epoch, every parameter and moment equal bit for bit (an all-reduce over
+    one rank changes no bit); rows 1-3 once a trainer step (row 1 also once
+    an eval forward), counted over the replicated run; step ms by events.
+    Then the vmapped tuner on a mesh of one against the tuner without one:
+    the same grid-step losses and parameters bit for bit."""
+    from topo_audio_autoencoder_torch import data
+    from topo_audio_autoencoder_torch.parallel import make_mesh
+    from topo_audio_autoencoder_torch.training import Trainer, TrainerConfig
+    from topo_audio_autoencoder_torch.training.tuner import VmappedGridTuner
+
+    corpus = data.synth_corpus(RESUME_TRAIN + RESUME_VAL, NUM_SAMPLES, seed=SEED + 81)
+    dists = data.compute_distances(corpus[:RESUME_TRAIN], tile=DATA_TILE)
+    train = data.NSynthDataset(corpus[:RESUME_TRAIN], dists["neighbors"], train=True, seed=SEED)
+    val = data.NSynthDataset(corpus[RESUME_TRAIN:])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, launches = {}, None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, kw in (("single", {}), ("dp", dict(data_parallel=True)),
+                             ("dp_shard", dict(data_parallel=True, shard_corpus=True))):
+                train.set_epoch(0)
+                model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 82,
+                                                     device=DEVICE)
+                ckpt = Path(tmp) / name
+                with TrainerProbe(torch) as probe:  # around the Trainer: it times the steps _build makes
+                    trainer = Trainer(model, train, val,
+                                      config=TrainerConfig(checkpoint_dir=str(ckpt), max_epochs=DP1_EPOCHS, **kw))
+                    for c in counters.values():
+                        c.launches = 0  # just before the main path
+                    t0 = time.perf_counter()
+                    m = trainer.train()
+                    wall = time.perf_counter() - t0
+                mesh = trainer.mesh
+                if name == "dp":
+                    launches = {n: c.launches for n, c in counters.items()}  # just after
+                    steps = len(m.iteration_losses)
+                    dumps = len(list(ckpt.glob("samples/*/metadata_*.json")))
+                    trainer_launch_check("dp1", launches, steps, len(probe.validates) + dumps)
+                runs[name] = dict(s=wall, metrics=m, probe=probe.summary(), **run_state(trainer),
+                                  mesh=None if mesh is None else dict(backend=mesh.backend, size=mesh.size,
+                                                                      rank=mesh.rank, device=str(mesh.device)))
+                if mesh is not None:
+                    mesh.close()
+                del model, trainer
+                torch.cuda.empty_cache()
+        model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 83, device=DEVICE)
+        batch = torch.from_numpy(train_batch(SEED + 84, 2)).to(DEVICE)
+        tunes = {}
+        for name in ("single", "mesh"):
+            mesh = make_mesh(1) if name == "mesh" else None
+            tuner = VmappedGridTuner(model, mesh=mesh)
+            state = tuner.init_grid(PARITY_GRID, seed=SEED + 85)
+            losses = []
+            for _ in range(2):
+                state, loss = tuner.grid_step(state, batch, TEMPERATURE, SEED)
+                losses.append(loss.cpu())
+            tunes[name] = dict(losses=torch.stack(losses), params={n: p.cpu() for n, p in state.params.items()})
+            if mesh is not None:
+                tunes[name]["backend"] = mesh.backend
+                mesh.close()
+            del tuner, state
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    single = runs["single"]
+    compared = {}
+    for name in ("dp", "dp_shard"):
+        run = runs[name]
+        compared[name] = dict(
+            losses_equal=all(getattr(run["metrics"], k) == getattr(single["metrics"], k)
+                             for k in ("iteration_losses", "train_losses", "val_losses")),
+            best_epoch=run["metrics"].best_epoch, counters=run["counters"], mesh=run["mesh"],
+            params_differ=differing(run["params"], single["params"])[:10],
+            moments_differ=differing(run["moments"], single["moments"])[:10],
+            seconds=run["s"], step_ms_median=run["probe"]["step_ms_median"],
+            step_ms_spread=run["probe"]["step_ms_spread"])
+    tune_equal = (torch.equal(tunes["mesh"]["losses"], tunes["single"]["losses"])
+                  and not differing(tunes["mesh"]["params"], tunes["single"]["params"]))
+    emit("dp1", config=FLAGSHIP, clips=dict(train=RESUME_TRAIN, val=RESUME_VAL), epochs=DP1_EPOCHS, batch=4, group=12,
+         accumulate=4, dtype="float32", cudnn_deterministic=True, launches=launches,
+         single=dict(seconds=single["s"], step_ms_median=single["probe"]["step_ms_median"],
+                     step_ms_spread=single["probe"]["step_ms_spread"], best_epoch=single["metrics"].best_epoch,
+                     train_losses=single["metrics"].train_losses, val_losses=single["metrics"].val_losses),
+         runs=compared, tuner=dict(grid=PARITY_GRID, anchors=2, steps=2, backend=tunes["mesh"]["backend"],
+                                   losses=tunes["mesh"]["losses"].tolist(), bit_for_bit=tune_equal))
+    check(all(math.isfinite(v) for v in single["metrics"].iteration_losses + single["metrics"].val_losses),
+          "dp1: non-finite loss")
+    for name, c in compared.items():
+        check(c["mesh"]["backend"] == "nccl" and c["mesh"]["size"] == 1, f"dp1 {name}: mesh {c['mesh']}")
+        check(c["losses_equal"] and c["best_epoch"] == single["metrics"].best_epoch
+              and c["counters"] == single["counters"], f"dp1 {name}: the losses or counters differ from the run "
+                                                       f"without data parallelism")
+        check(not c["params_differ"] and not c["moments_differ"],
+              f"dp1 {name}: parameters {c['params_differ']} or moments {c['moments_differ']} differ")
+    check(tune_equal, "dp1: the tuner on a mesh of one differs from the tuner without one")
+    return launches
+
+
+def dp2_run(torch, model, mesh, corpus: np.ndarray, idx: np.ndarray, w: np.ndarray, counters) -> dict:
+    """The dp2 work of one process (``mesh`` None: the world-1 reference):
+    the first step's loss, components, gradient and encoder masks
+    (``make_loss_and_grads``), the gradient of train_parity's surrogate
+    through the same step (the spectral distance replaced by the mean over
+    the clips of <recon, w>, so that the ranks' mean is the batch's), then
+    DP2_STEPS indexed steps over the replicated corpus (each timed by CUDA
+    events, the launch counters zeroed just before and read just after)
+    and the accumulator they leave; with a mesh, the all-reduce of the
+    gradient alone, timed."""
+    from unittest import mock
+
+    from topo_audio_autoencoder_torch import training
+    from topo_audio_autoencoder_torch.models import encoder as encoder_mod
+    from topo_audio_autoencoder_torch.parallel import mean_over_ranks, shard_batch
+    from topo_audio_autoencoder_torch.training import train_step as train_step_mod
+
+    device = next(model.parameters()).device
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    batch = train_step_mod.gather_batch(corpus_dev, shard_batch(torch.from_numpy(idx[0]), mesh))
+    masks, generate = [], encoder_mod.AudioEncoder.generate_complex
+
+    def recorded(self, *a, **k):
+        out = generate(self, *a, **k)
+        masks.append([m.detach().cpu() for m in out.masks])
+        return out
+
+    with mock.patch.object(encoder_mod.AudioEncoder, "generate_complex", recorded):
+        total, comps, grads = training.make_loss_and_grads(model, mesh=mesh)(batch, TEMPERATURE, SEED, 0)
+    w_rows = shard_batch(torch.from_numpy(w), mesh).to(device)
+
+    def surrogate_loss(recon, target, aux, valid, weights, contrastive=None, **kw):
+        val = (recon[:, 0] * w_rows[:, 0]).sum(-1).mean() + aux["binary_entropy"].mean() + aux["diversity"].mean()
+        val = val + contrastive if contrastive is not None else val
+        return val, {"total_loss": val}
+
+    with mock.patch.object(train_step_mod, "autoencoder_loss", surrogate_loss):
+        sur_val, _, sur_grads = training.make_loss_and_grads(model, mesh=mesh)(batch, TEMPERATURE, SEED, 0)
+    opt = training.make_optimizer()  # accumulation 4: no update within DP2_STEPS steps
+    step = training.make_indexed_train_step(model, opt, corpus_dev, mesh=mesh)
+    state = training.create_train_state(model, opt)
+    for c in counters.values():
+        c.launches = 0  # just before the main path
+    events, metrics = [], []
+    for i in range(DP2_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, torch.from_numpy(idx[i]), TEMPERATURE, SEED)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}  # just after
+    collective_ms = []  # host clock: gloo blocks the host until its copies back are done
+    if mesh is not None:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean_over_ranks(list(grads.values()), mesh)
+            torch.cuda.synchronize()
+            collective_ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(total=float(total), comps={k: float(v) for k, v in comps.items()},
+                grads={n: g.cpu() for n, g in grads.items()}, masks=masks[0], surrogate=float(sur_val),
+                surrogate_grads={n: g.cpu() for n, g in sur_grads.items()},
+                losses=[{k: float(v) for k, v in m.items()} for m in metrics],
+                acc={n: t.cpu() for n, t in state.opt_state.acc.items()}, mini_step=state.opt_state.mini_step,
+                step_ms=[s.elapsed_time(e) for s, e in events], launches=launches, collective_ms=collective_ms,
+                grad_bytes=sum(g.numel() * 4 for g in grads.values()))
+
+
+def dp2_rank(rank: int, tmp: str) -> None:
+    """One dp2 rank, in a process of its own: the card, a gloo group made
+    through a file in ``tmp``, the mesh that adopts it, the weights from
+    ``tmp``; saves what ``dp2_run`` returns (or the traceback) and whether
+    JAX was imported."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/pg", rank=rank, world_size=DP2_RANKS,
+                                timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+        try:
+            import topo_audio_autoencoder_torch as port
+            from topo_audio_autoencoder_torch.parallel import make_mesh, replicate
+
+            mesh = make_mesh(DP2_RANKS)
+            inputs = torch.load(Path(tmp) / "dp2_inputs.pt", weights_only=False)
+            model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 90,
+                                                 device=mesh.device)
+            model.load_state_dict(inputs["state_dict"])
+            replicate(model, mesh)
+            out = dp2_run(torch, model, mesh, inputs["corpus"], inputs["idx"], inputs["w"], launch_counters())
+            out["mesh"] = dict(backend=mesh.backend, size=mesh.size, rank=mesh.rank, device=str(mesh.device))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    out["jax_imported"] = any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    torch.save(out, Path(tmp) / f"dp2_{rank}.pt")
+
+
+def phase_dp2(torch, port, training, counters) -> dict:
+    """Two ranks on the one card over gloo against the world-1 step on the
+    same weights, batch and seed: every step's loss (no update within the
+    steps), the encoder masks of the first step bit for bit (each rank's
+    rows of the global draw), the whole gradient (train_parity's bounds,
+    the conditioning read from a 1e-6 nudge of the reference's batch), the
+    accumulator the steps leave, rows 1-3 once a rank a step. The ranks are
+    spawned processes with a deadline; a hung or failed rank fails the
+    phase. Returns the launches summed over the ranks."""
+    import multiprocessing
+
+    from topo_audio_autoencoder_torch.training.train_step import gather_batch
+
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 90, device=DEVICE)
+    n_clips = DP2_B * TRAIN_G
+    corpus = make_clips(n_clips, SEED + 91)[:, 0]
+    rng = np.random.default_rng(SEED + 92)
+    idx = np.stack([rng.permutation(n_clips).reshape(DP2_B, TRAIN_G) for _ in range(DP2_STEPS)])
+    w = rng.standard_normal((DP2_B, 1, NUM_SAMPLES)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dict(state_dict={k: v.cpu() for k, v in model.state_dict().items()}, corpus=corpus, idx=idx,
+                        w=w), Path(tmp) / "dp2_inputs.pt")
+        nudged = training.make_loss_and_grads(model)(
+            gather_batch(torch.from_numpy(corpus).to(DEVICE), torch.from_numpy(idx[0])) * np.float32(1 + FLOOR_NUDGE),
+            TEMPERATURE, SEED, 0)[2]
+        ref = dp2_run(torch, model, None, corpus, idx, w, counters)
+        del model
+        torch.cuda.empty_cache()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp2_rank, args=(r, tmp), daemon=True) for r in range(DP2_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP2_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        check(not hung, f"dp2: ranks {hung} still running after {DP2_JOIN_S} s")
+        outs = []
+        for r, p in enumerate(procs):
+            path = Path(tmp) / f"dp2_{r}.pt"
+            check(path.exists(), f"dp2: rank {r} exited {p.exitcode} without a result")
+            outs.append(torch.load(path, weights_only=False))
+    for r, o in enumerate(outs):
+        check("error" not in o, f"dp2: rank {r} failed:\n{o.get('error')}")
+        check(not o["jax_imported"], f"dp2: rank {r} imported JAX")
+
+    def l2(ts):
+        return math.sqrt(sum(float((t.double() ** 2).sum()) for t in ts))
+
+    want = ref["grads"]
+    grad_err = l2(outs[0]["grads"][n] - want[n] for n in want) / l2(want.values())
+    floor = l2(nudged[n].cpu() - want[n] for n in want) / l2(want.values())
+    conditioned = floor <= PARITY_GRAD_REL_L2
+    acc_err = l2(outs[0]["acc"][n] - ref["acc"][n] for n in want) / l2(ref["acc"].values())
+    loss_err = max(abs(o["losses"][i][k] - ref["losses"][i][k]) / max(abs(ref["losses"][i][k]), 1e-6)
+                   for o in outs for i in range(DP2_STEPS) for k in ref["losses"][i] if k != "grad_norms")
+    first_err = max(abs(o["total"] - ref["total"]) / abs(ref["total"]) for o in outs)
+    scale = max(float(g.abs().max()) for g in ref["surrogate_grads"].values())
+    leaf_err = {n: float((outs[0]["surrogate_grads"][n] - g).abs().max()) / scale
+                for n, g in ref["surrogate_grads"].items()}
+    worst = max(leaf_err, key=leaf_err.get)
+    sur_err = max(abs(o["surrogate"] - ref["surrogate"]) / abs(ref["surrogate"]) for o in outs)
+    masks = [torch.cat([o["masks"][k] for o in outs]) for k in range(len(ref["masks"]))]
+    flips = sum(int((a != b).sum()) for a, b in zip(masks, ref["masks"]))
+    same_on_ranks = not differing(outs[0]["grads"], outs[1]["grads"])
+    per_rank = [dict(mesh=o["mesh"], step_ms=o["step_ms"], step_ms_median=statistics.median(o["step_ms"]),
+                     collective_ms=o["collective_ms"], launches={k: v for k, v in o["launches"].items() if v})
+                for o in outs]
+    emit("dp2", config=FLAGSHIP, ranks=DP2_RANKS, backend="gloo", global_batch=DP2_B, group=TRAIN_G, dtype="float32",
+         steps=DP2_STEPS, accumulate=4, wall_s=wall, grad_bytes=outs[0]["grad_bytes"], per_rank=per_rank,
+         reference=dict(step_ms=ref["step_ms"], step_ms_median=statistics.median(ref["step_ms"])),
+         loss_rel_err=loss_err, first_loss_rel_err=first_err, loss_rtol=PARITY_LOSS_RTOL,
+         grad_rel_l2=grad_err, grad_nudge_floor=floor, grad_conditioned=conditioned,
+         grad_rel_l2_tol=PARITY_GRAD_REL_L2, accumulator_rel_l2=acc_err, grads_equal_on_ranks=same_on_ranks,
+         surrogate_value_rel_err=sur_err, surrogate_leaf_max_err=leaf_err[worst], surrogate_worst_leaf=worst,
+         surrogate_tol=SURROGATE_TOL,
+         mask_bits=sum(int(m.numel()) for m in masks), mask_bits_differing=flips,
+         active_mask_bits=sum(int(m.sum()) for m in masks))
+    check(flips == 0, f"dp2: {flips} encoder mask bits differ from the world-1 step")
+    check(first_err <= PARITY_LOSS_RTOL and loss_err <= PARITY_LOSS_RTOL,
+          f"dp2: loss {first_err}, step losses {loss_err} against the world-1 step")
+    check(same_on_ranks, "dp2: the ranks hold different averaged gradients")
+    check(sur_err <= PARITY_LOSS_RTOL and leaf_err[worst] <= SURROGATE_TOL,
+          f"dp2: surrogate value {sur_err}, leaf {worst} {leaf_err[worst]} against the world-1 step")
+    check(grad_err <= PARITY_GRAD_REL_L2 or not conditioned, f"dp2: gradient rel L2 {grad_err} (nudge floor {floor})")
+    check(acc_err <= PARITY_GRAD_REL_L2 or not conditioned, f"dp2: accumulator rel L2 {acc_err} (nudge floor {floor})")
+    check(all(o["mini_step"] == DP2_STEPS for o in (ref, *outs)), "dp2: the accumulator's micro-step count")
+    for r, o in enumerate(outs):
+        want_launches = {n: DP2_STEPS for n in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT)}
+        got = {k: v for k, v in o["launches"].items() if v}
+        check(got == want_launches, f"dp2 rank {r}: launched {got}, not {want_launches}")
+    return {n: sum(o["launches"][n] for o in outs) for n in outs[0]["launches"]}
+
+
 def kernel_entry(name, source, replaces, launches, result) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3375,15 +3807,22 @@ def main() -> int:
         cli_launches = phase_codec_cli(torch, port, counters)
         tuner_launches = phase_tuner(torch, port, counters)
         phase_tuner_parity(torch, port, training, counters)
+        torch.cuda.empty_cache()
+        phase_dp_philox(torch, fused, hc, n_simplices)
+        dp1_launches = phase_dp1(torch, port, counters)
+        dp2_launches = phase_dp2(torch, port, training, counters)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
     emit("profiler", **PROFILES)
     csrc = "topo_audio_autoencoder_torch/csrc/"
-    # Rows 1 and 2 run on three paths of this slice: trainer_main, the
-    # codec CLI and the vmapped tuner, each counted from zero.
-    path_launches = {name: trainer_launches[name] + cli_launches[name] + tuner_launches[name]
-                     for name in ("masked_attention_fwd", "masked_attention_bwd")}
+    # The main paths, each counted from zero: trainer_main, the codec CLI
+    # and the vmapped tuner (rows 1 and 2), and data parallelism's Trainer
+    # over NCCL (dp1) and the two gloo ranks' steps (dp2) (rows 1-3).
+    path_launches = {name: trainer_launches[name] + dp1_launches[name] + dp2_launches[name]
+                     for name in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT)}
+    for name in ("masked_attention_fwd", "masked_attention_bwd"):
+        path_launches[name] += cli_launches[name] + tuner_launches[name]
     print(json.dumps({"kernels": [
         kernel_entry("masked_attention_fwd", csrc + "masked_attention_fwd.cu",
                      "topo_audio_autoencoder_tpu/ops/attention.py:54",
@@ -3393,7 +3832,7 @@ def main() -> int:
                      path_launches["masked_attention_bwd"], bwd),
         kernel_entry("binary_gumbel", csrc + "binary_gumbel.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:216",
-                     trainer_launches["binary_gumbel"], sampler),
+                     path_launches["binary_gumbel"], sampler),
         kernel_entry("hard_concrete", csrc + "hard_concrete.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:61",
                      hc_launches["hard_concrete"], hc_kernels["hard_concrete"]),
@@ -3402,7 +3841,7 @@ def main() -> int:
                      learned_launches["hard_concrete_learned"], hc_kernels["hard_concrete_learned"]),
         kernel_entry("binary_gumbel_bwd", csrc + "binary_gumbel.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:286",
-                     trainer_launches["binary_gumbel_bwd"], sampler_bwd["binary_gumbel_bwd"]),
+                     path_launches["binary_gumbel_bwd"], sampler_bwd["binary_gumbel_bwd"]),
         kernel_entry("hard_concrete_bwd", csrc + "hard_concrete.cu",
                      "topo_audio_autoencoder_tpu/ops/pallas_kernels.py:317",
                      hc_launches["hard_concrete_bwd"], sampler_bwd["hard_concrete_bwd"]),

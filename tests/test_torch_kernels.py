@@ -403,6 +403,46 @@ def test_sampler_kernel_uniforms_at_ragged_lengths(cuda, sampler, shape):
     assert torch.equal(u, fused_samplers.philox_uniform(x.numel(), 41, 6, cuda).reshape(shape))
 
 
+def _sample_from(sampler, x, rows, first, **kw):
+    from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
+
+    if sampler == "gumbel":
+        return fused_samplers.binary_gumbel_sample(x, 0.7, first=first, return_noise=True, **kw)
+    if sampler == "fixed":
+        return hc.hard_concrete_sample(x, 0.7, first=first, return_noise=True, **kw)
+    return hc.hard_concrete_learned_sample(x, *rows, first=first, return_noise=True, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sampler", ["gumbel", "fixed", "learned"])
+@pytest.mark.parametrize("rank,world", [(1, 2), (3, 4), (0, 2)], ids=["r1of2", "r3of4", "r0of2"])
+def test_sampler_kernel_from_first_draws_the_rows_of_the_global_draw(cuda, dtype, sampler, rank, world):
+    """A data-parallel rank's draw, ``first`` = its first row times the row
+    length, equals its rows of the whole batch's draw bit for bit (the
+    kernel is elementwise), and the plain Philox stream from ``first``."""
+    s = TRAIN_LOGITS[1]
+    rows = _hc_rows(cuda, s)
+    x = torch.from_numpy(np.random.default_rng(4).normal(0.5, 2.0, (4 * world, s)).astype(np.float32)).to(cuda, dtype)
+    whole, u_whole = _sample_from(sampler, x, rows, 0, seed=43, offset=2)
+    mine = x[4 * rank : 4 * (rank + 1)].contiguous()
+    first = 4 * rank * s
+    got, u = _sample_from(sampler, mine, rows, first, seed=43, offset=2)
+    assert torch.equal(u, u_whole[4 * rank : 4 * (rank + 1)])
+    assert torch.equal(got, whole[4 * rank : 4 * (rank + 1)])
+    assert torch.equal(u, fused_samplers.philox_uniform(mine.numel(), 43, 2, cuda, first).reshape(mine.shape))
+
+
+@pytest.mark.parametrize("sampler", ["gumbel", "fixed", "learned"])
+@pytest.mark.parametrize("first", [1, 2, 3, 6195, 2**33 + 7])
+def test_sampler_kernel_uniforms_from_odd_starts(cuda, sampler, first):
+    """Any start: an odd ``first`` puts every other Hard Concrete thread's
+    pair across two Philox groups."""
+    shape = (3, 37)
+    x = torch.linspace(-3.0, 3.0, 111, device=cuda).reshape(shape)
+    _, u = _sample_from(sampler, x, _hc_rows(cuda, shape[-1]), first, seed=41, offset=6)
+    assert torch.equal(u, fused_samplers.philox_uniform(111, 41, 6, cuda, first).reshape(shape))
+
+
 # The backward kernels against their plain versions (the same operations in
 # the same order; on the card the plain version divides by a Python scalar
 # as a product with its reciprocal): da within 1e-6 of its largest element

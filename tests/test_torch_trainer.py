@@ -550,17 +550,20 @@ def test_val_corpus_cache_does_not_key_on_id(tmp_path, model, corpus, monkeypatc
     assert got == want and got != first
 
 
-def test_not_ported_paths_raise(tmp_path, model, corpus):
+def test_data_parallel_config_errors(tmp_path, model, corpus, monkeypatch):
+    """The JAX Trainer's two ValueErrors, with its messages: a batch that
+    does not divide over the mesh (here a stand-in mesh of two ranks), and
+    shard_corpus without data_parallel and device_corpus."""
+    from topo_audio_autoencoder_torch.parallel import DataMesh
+
     train, val = _datasets(corpus, config=G3)
-    for kw in (dict(data_parallel=True, n_devices=2), dict(shard_corpus=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    two = DataMesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
+    monkeypatch.setattr(pt_trainer, "make_mesh", lambda n_devices=None, device=None: two)
+    with pytest.raises(ValueError, match="must divide the 2-device mesh"):
+        Trainer(model, train, val, config=_config(tmp_path, batch_size=3, data_parallel=True))
+    for kw in (dict(shard_corpus=True), dict(shard_corpus=True, data_parallel=True, device_corpus=False)):
+        with pytest.raises(ValueError, match="shard_corpus requires data_parallel and device_corpus"):
             Trainer(model, train, val, config=_config(tmp_path, **kw))
-    opt = make_optimizer()
-    for kw in (dict(mesh=object()), dict(shard_corpus=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            make_indexed_train_step(model, opt, train.waveforms, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            make_scan_indexed_train_step(model, opt, train.waveforms, **kw)
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path, model, corpus, monkeypatch):

@@ -370,10 +370,28 @@ def test_trainer_vmapped_tuning_writes_best_tuning(data, tmp_path):
     assert (tmp_path / "best_tuning.extra.json").exists()
 
 
-def test_mesh_raises(data):
-    model, _, _ = data
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        VmappedGridTuner(model, mesh=object())
+def test_mesh_of_one_changes_no_bit(data):
+    """The tuner on a data mesh of one process (gloo, a local store) equals
+    the tuner without a mesh bit for bit, dropout on: the grid broadcast,
+    the rank-row draws and the all-reduces of the gradients, losses and
+    eval losses change nothing over one rank. (Two ranks:
+    tests/test_torch_parallel.py.)"""
+    from topo_audio_autoencoder_torch.parallel import make_mesh
+
+    model, train, val = data
+    grid = {"encoder_lr": [1e-3, 5e-4], "decoder_lr": [1e-4], "complexity_penalty": [0.1]}
+    kw = dict(train_batches=lambda e: index_iterator(train, 2, epoch=e),
+              val_batches=lambda: index_iterator(val, 2, shuffle=False),
+              corpus=train.waveforms, val_corpus=val.waveforms, epochs=1, seed=7, scan_steps=2)
+    want = VmappedGridTuner(model).tune(grid, **kw)
+    mesh = make_mesh(1, device="cpu", timeout=60)
+    try:
+        got = VmappedGridTuner(model, mesh=mesh).tune(grid, **kw)
+    finally:
+        mesh.close()
+    assert got["train_curve"] == want["train_curve"] and got["val_losses"] == want["val_losses"]
+    for n, p in want["state"].params.items():
+        assert torch.equal(got["state"].params[n], p), n
 
 
 def test_dropout_noise_equals_the_generator_draw(data):

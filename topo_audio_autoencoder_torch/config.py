@@ -71,7 +71,9 @@ class TrainConfig:
     invalid_state_penalty: float = 100.0
     seed: int = 511990
     compute_dtype: str = "float32"
-    n_devices: int | None = None  # data-parallel width (> 1 is not ported yet)
+    # Data-parallel width: > 1 trains data-parallel, one process a device,
+    # under torchrun --nproc_per_node=<n_devices> (TrainerConfig.data_parallel).
+    n_devices: int | None = None
     # Resume from <checkpoint_dir>/latest: skips the checkpoint-dir
     # rotation and restores params/opt-state/metrics/curriculum/RNG
     # (the reference always rotates, main.py:240-256; resume is a rebuild

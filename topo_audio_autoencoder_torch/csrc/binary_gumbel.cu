@@ -14,8 +14,11 @@
 //
 // The uniforms come from csrc/philox.cuh: Philox4x32-10 keyed by the
 // 64-bit seed, counter (group index, 64-bit offset), four elements per
-// group. ops/fused_samplers.py computes the same stream in plain torch, and
-// the two agree bit for bit.
+// group, the draw starting at element `first` of the stream (so a
+// data-parallel rank draws its rows of the global batch's draw; first = 0
+// is the whole draw, the same bits as before `first` existed).
+// ops/fused_samplers.py computes the same stream in plain torch, and the
+// two agree bit for bit.
 //
 // Two forward entry points share the device function `relax`: one draws u
 // from (seed, offset) and can also write it out (for checks against the
@@ -58,19 +61,20 @@ __device__ __forceinline__ float relax(float l, float u, float inv_t) {
 
 constexpr int kThreads = 256;
 
-// Thread i: element i, word i & 3 of group i / 4.
+// Thread i: element i, stream element e = first + i: word e & 3 of group e / 4.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) philox_kernel(const T* __restrict__ logits,
                                                           T* __restrict__ out,
                                                           float* __restrict__ u_out, int64_t n,
-                                                          uint32_t seed_lo, uint32_t seed_hi,
-                                                          uint32_t off_lo, uint32_t off_hi,
-                                                          float inv_t) {
+                                                          uint64_t first, uint32_t seed_lo,
+                                                          uint32_t seed_hi, uint32_t off_lo,
+                                                          uint32_t off_hi, float inv_t) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float l = to_float(logits[i]);  // in flight during the Philox rounds
-  const uint4 r = philox_block(i >> 2, seed_lo, seed_hi, off_lo, off_hi);
-  const float u = bits_to_uniform(word(r, (int)(i & 3)));
+  const uint64_t e = first + (uint64_t)i;
+  const uint4 r = philox_block((int64_t)(e >> 2), seed_lo, seed_hi, off_lo, off_hi);
+  const float u = bits_to_uniform(word(r, (int)(e & 3)));
   out[i] = from_float<T>(relax(l, u, inv_t));
   if (u_out != nullptr) u_out[i] = u;
 }
@@ -133,14 +137,15 @@ int launch_bwd(const void* s, const void* ct, void* dl, int64_t n, float t, int 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. u_out may be null. Returns
-// cudaGetLastError() after the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for arguments the kernel does not take. Launches on
-// `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16. u_out may be null. The draw starts at
+// element `first` of the stream. Returns cudaGetLastError() after the
+// launch (0 = cudaSuccess), or cudaErrorInvalidValue for arguments the
+// kernel does not take. Launches on `stream` and does not synchronise.
 extern "C" int binary_gumbel_philox(const void* logits, void* out, void* u_out, int64_t n,
-                                    uint64_t seed, uint64_t offset, float temperature,
-                                    int dtype, void* stream) {
-  if (n < 0 || !(temperature > 0.0f)) return (int)cudaErrorInvalidValue;
+                                    uint64_t seed, uint64_t offset, uint64_t first,
+                                    float temperature, int dtype, void* stream) {
+  if (n < 0 || !(temperature > 0.0f) || first > UINT64_MAX - (uint64_t)n)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t slo = (uint32_t)seed, shi = (uint32_t)(seed >> 32);
@@ -149,11 +154,11 @@ extern "C" int binary_gumbel_philox(const void* logits, void* out, void* u_out, 
   if (dtype == 0) {
     philox_kernel<float><<<blocks_for(n, 1, kThreads), kThreads, 0, s>>>(
         static_cast<const float*>(logits), static_cast<float*>(out), static_cast<float*>(u_out), n,
-        slo, shi, olo, ohi, inv_t);
+        first, slo, shi, olo, ohi, inv_t);
   } else if (dtype == 1) {
     philox_kernel<__nv_bfloat16><<<blocks_for(n, 1, kThreads), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(u_out), n, slo, shi, olo, ohi, inv_t);
+        static_cast<float*>(u_out), n, first, slo, shi, olo, ohi, inv_t);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -24,9 +24,13 @@
 // The uniforms come from csrc/philox.cuh: Philox4x32-10 keyed by the 64-bit
 // seed, counter (group index, 64-bit offset), four elements per group, the
 // stream binary_gumbel.cu draws and ops/fused_samplers.py::philox_uniform
-// reproduces bit for bit. Each variant has a second entry point that reads
-// the uniforms from a tensor (how the tests hand both packages the same
-// numbers). The TPU kernels pad log-alpha to (8, 128) tiles and the
+// reproduces bit for bit, from element `first` of the stream (a
+// data-parallel rank's rows of the global batch's draw; 0 for the whole
+// draw, the bits from before `first` existed). An even `first` keeps each
+// thread's two elements in one group; an odd one puts the pair of every
+// other thread across two groups, and that thread computes both blocks.
+// Each variant has a second entry point that reads the uniforms from a
+// tensor (how the tests hand both packages the same numbers). The TPU kernels pad log-alpha to (8, 128) tiles and the
 // stretch rows with 1/0/1; here nothing is padded: a thread masks the
 // ragged end itself.
 //
@@ -106,14 +110,16 @@ constexpr int kPer = 2;
 constexpr int kThreads = 128;
 
 // Thread t: elements kPer t .. kPer t + kPer - 1, read and written in one
-// access each where whole and aligned; their words of group kPer t / 4.
+// access each where whole and aligned; element i takes stream element
+// first + i, word (first + i) & 3 of group (first + i) / 4.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) philox_kernel(const T* __restrict__ log_alpha,
                                                           T* __restrict__ out,
                                                           float* __restrict__ u_out, int64_t n,
-                                                          Stretch st, uint32_t seed_lo,
-                                                          uint32_t seed_hi, uint32_t off_lo,
-                                                          uint32_t off_hi, bool aligned_io) {
+                                                          Stretch st, uint64_t first,
+                                                          uint32_t seed_lo, uint32_t seed_hi,
+                                                          uint32_t off_lo, uint32_t off_hi,
+                                                          bool aligned_io) {
   const int64_t base = kPer * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
   if (base >= n) return;
   const bool whole = aligned_io && base + kPer <= n;
@@ -121,10 +127,16 @@ __global__ void __launch_bounds__(kThreads) philox_kernel(const T* __restrict__ 
   float3 p[kPer];
   load<kPer>(log_alpha, base, n, whole, a);  // in flight during the Philox rounds
   st.at<kPer>(base, n, p);
-  const uint4 r = philox_block(base >> 2, seed_lo, seed_hi, off_lo, off_hi);
+  const uint64_t e = first + (uint64_t)base;
+  const int w0 = (int)(e & 3);
+  const uint4 r = philox_block((int64_t)(e >> 2), seed_lo, seed_hi, off_lo, off_hi);
+  // The next group's block, only where the pair crosses into it (odd first).
+  const uint4 r1 =
+      w0 + kPer > 4 ? philox_block((int64_t)(e >> 2) + 1, seed_lo, seed_hi, off_lo, off_hi) : r;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    u[j] = bits_to_uniform(word(r, (int)(base & 3) + j));
+    const int k = w0 + j;
+    u[j] = bits_to_uniform(k < 4 ? word(r, k) : word(r1, k - 4));
     z[j] = gate(a[j], u[j], p[j].x, p[j].y, p[j].z);
   }
   store<kPer>(out, base, n, whole, z);
@@ -221,7 +233,9 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 int launch(const void* log_alpha, const void* u, void* out, void* u_out, int64_t n,
-           const Stretch& st, uint64_t seed, uint64_t offset, int dtype, void* stream) {
+           const Stretch& st, uint64_t seed, uint64_t offset, uint64_t first, int dtype,
+           void* stream) {
+  if (first > UINT64_MAX - (uint64_t)n) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = (unsigned)(((n + kPer - 1) / kPer + kThreads - 1) / kThreads);
@@ -231,12 +245,12 @@ int launch(const void* log_alpha, const void* u, void* out, void* u_out, int64_t
     if (dtype == 0) {
       philox_kernel<float><<<blocks, kThreads, 0, s>>>(
           static_cast<const float*>(log_alpha), static_cast<float*>(out),
-          static_cast<float*>(u_out), n, st, slo, shi, olo, ohi,
+          static_cast<float*>(u_out), n, st, first, slo, shi, olo, ohi,
           aligned<kPer, float>(log_alpha) && aligned<kPer, float>(out) && aligned<kPer, float>(u_out));
     } else if (dtype == 1) {
       philox_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(log_alpha), static_cast<__nv_bfloat16*>(out),
-          static_cast<float*>(u_out), n, st, slo, shi, olo, ohi,
+          static_cast<float*>(u_out), n, st, first, slo, shi, olo, ohi,
           aligned<kPer, __nv_bfloat16>(log_alpha) && aligned<kPer, __nv_bfloat16>(out) &&
               aligned<kPer, float>(u_out));
     } else {
@@ -319,13 +333,15 @@ Stretch rows(const void* beta, const void* gamma, const void* zeta, int64_t cols
 // the launch (0 = cudaSuccess), or cudaErrorInvalidValue for arguments the
 // kernel does not take. Launches on `stream` and does not synchronise.
 
-// Fixed stretch, uniforms from (seed, offset); u_out (may be null) receives them.
+// Fixed stretch, uniforms from (seed, offset) starting at stream element
+// `first`; u_out (may be null) receives them.
 extern "C" int hard_concrete_philox(const void* log_alpha, void* out, void* u_out, int64_t n,
-                                    uint64_t seed, uint64_t offset, float temperature,
-                                    float gamma, float zeta, int dtype, void* stream) {
+                                    uint64_t seed, uint64_t offset, uint64_t first,
+                                    float temperature, float gamma, float zeta, int dtype,
+                                    void* stream) {
   if (n < 0 || !(temperature > 0.0f) || !(zeta > gamma)) return (int)cudaErrorInvalidValue;
   return launch(log_alpha, nullptr, out, u_out, n, fixed(temperature, gamma, zeta), seed, offset,
-                dtype, stream);
+                first, dtype, stream);
 }
 
 // Fixed stretch on given uniforms u (n elements).
@@ -334,20 +350,22 @@ extern "C" int hard_concrete_noise(const void* log_alpha, const void* u, void* o
                                    void* stream) {
   if (n < 0 || u == nullptr || !(temperature > 0.0f) || !(zeta > gamma))
     return (int)cudaErrorInvalidValue;
-  return launch(log_alpha, u, out, nullptr, n, fixed(temperature, gamma, zeta), 0, 0, dtype,
+  return launch(log_alpha, u, out, nullptr, n, fixed(temperature, gamma, zeta), 0, 0, 0, dtype,
                 stream);
 }
 
-// Learned stretch: beta, gamma, zeta are [cols] rows; n is a multiple of cols.
+// Learned stretch: beta, gamma, zeta are [cols] rows; n is a multiple of
+// cols; the uniforms start at stream element `first`.
 extern "C" int hard_concrete_learned_philox(const void* log_alpha, const void* beta,
                                             const void* gamma, const void* zeta, void* out,
                                             void* u_out, int64_t n, int64_t cols, uint64_t seed,
-                                            uint64_t offset, int dtype, void* stream) {
+                                            uint64_t offset, uint64_t first, int dtype,
+                                            void* stream) {
   if (n < 0 || cols <= 0 || n % cols != 0 || beta == nullptr || gamma == nullptr ||
       zeta == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch(log_alpha, nullptr, out, u_out, n, rows(beta, gamma, zeta, cols), seed, offset,
-                dtype, stream);
+                first, dtype, stream);
 }
 
 // Learned stretch on given uniforms u (n elements).
@@ -358,7 +376,7 @@ extern "C" int hard_concrete_learned_noise(const void* log_alpha, const void* u,
   if (n < 0 || cols <= 0 || n % cols != 0 || u == nullptr || beta == nullptr ||
       gamma == nullptr || zeta == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch(log_alpha, u, out, nullptr, n, rows(beta, gamma, zeta, cols), 0, 0, dtype,
+  return launch(log_alpha, u, out, nullptr, n, rows(beta, gamma, zeta, cols), 0, 0, 0, dtype,
                 stream);
 }
 

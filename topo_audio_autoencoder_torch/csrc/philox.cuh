@@ -3,7 +3,10 @@
 //
 // The generator is Philox4x32-10 (Salmon et al., SC'11), keyed by the
 // 64-bit seed; the 128-bit counter is (group index, 64-bit offset). Group g
-// covers elements 4g .. 4g+3, and word j of its block becomes
+// covers elements 4g .. 4g+3 of the stream; a draw of n elements from
+// element `first` (a data-parallel rank's rows of the global batch's draw;
+// 0 for the whole batch) gives its element i element first + i, word
+// (first + i) & 3 of group (first + i) >> 2. Word j of a block becomes
 // u = (word_j >> 8) * 2^-24, clipped to [1e-6, 1 - 1e-6]. The shift is on
 // unsigned 32-bit words: the TPU kernels' bits were signed, and an
 // arithmetic shift once skewed their uniforms into (0, 0.5)

@@ -3,7 +3,10 @@
 Port of ``topo_audio_autoencoder_tpu.main``: the same steps and the same
 ``section.key=value`` overrides. The run goes to the CUDA card (the model,
 the distance precompute, the trainer) unless ``train.device=cpu`` asks for
-the plain path on the CPU.
+the plain path on the CPU. ``train.n_devices=N`` (N > 1) trains
+data-parallel, one process a device, under ``torchrun``: rank 0 rotates
+the checkpoint directory and prepares the data first, the other ranks
+then read what it wrote.
 
 Usage:
     python -m topo_audio_autoencoder_torch.main [overrides...]
@@ -11,6 +14,7 @@ Usage:
         train.batch_size=32 model.hard=true run_tuning=false
     python -m topo_audio_autoencoder_torch.main train.device=cpu ...
     python -m topo_audio_autoencoder_torch.main train.resume=true ...
+    torchrun --nproc_per_node=2 -m topo_audio_autoencoder_torch.main train.n_devices=2 ...
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
 from .config import Config
 from .data import (
@@ -30,6 +35,7 @@ from .data import (
     synth_corpus,
 )
 from .models import AudioAutoencoder
+from .parallel import make_mesh
 from .training import Trainer, TrainerConfig
 
 
@@ -82,7 +88,24 @@ def prepare_data(cfg: Config):
 
 def main(argv: list[str] | None = None) -> None:
     cfg = Config.from_args(argv if argv is not None else sys.argv[1:])
-    if cfg.train.resume:
+    data_parallel = cfg.train.n_devices is not None and cfg.train.n_devices > 1
+    mesh = make_mesh(cfg.train.n_devices, device=cfg.train.device) if data_parallel else None
+    try:
+        run(cfg, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def run(cfg: Config, mesh=None) -> None:
+    """The run of ``main`` on this process; with a data mesh, rank 0 makes
+    the checkpoint directory and the data files before the other ranks
+    look for them."""
+    first = mesh is None or mesh.rank == 0
+    if not first:
+        dist.barrier(group=mesh.group)  # after rank 0's directory and data files
+        checkpoint_dir = Path(cfg.train.checkpoint_dir)
+    elif cfg.train.resume:
         # train.resume=true: keep the existing run directory intact and
         # pick up from its 'latest' checkpoint instead of rotating it away.
         checkpoint_dir = Path(cfg.train.checkpoint_dir)
@@ -104,11 +127,13 @@ def main(argv: list[str] | None = None) -> None:
         pqmf_attenuation=cfg.model.pqmf_attenuation,
         pack_capacities=cfg.model.pack_capacities,
         num_samples=cfg.data.clip_samples,
-        device=cfg.train.device,
+        device=cfg.train.device if mesh is None else mesh.device,
     )
     train_ds, val_ds, dists = prepare_data(cfg)
+    if mesh is not None and first:
+        dist.barrier(group=mesh.group)
 
-    if cfg.explore.enabled:
+    if cfg.explore.enabled and first:
         # Config-gated and non-interactive: dump a sample's nearest and
         # farthest neighbors before training.
         from .data import explore_neighbors
@@ -149,7 +174,7 @@ def main(argv: list[str] | None = None) -> None:
             patience=t.patience,
             tuning_epochs=t.tuning_epochs,
             compute_dtype=t.compute_dtype,
-            data_parallel=t.n_devices is not None and t.n_devices > 1,
+            data_parallel=mesh is not None,
             n_devices=t.n_devices,
             scan_steps=t.scan_steps,
             async_checkpoint=t.async_checkpoint,
@@ -166,7 +191,8 @@ def main(argv: list[str] | None = None) -> None:
         else None
     )
     metrics = trainer.train(grid, resume=cfg.train.resume)
-    print(f"best val loss {metrics.best_val_loss:.4f} @ epoch {metrics.best_epoch}")
+    if first:
+        print(f"best val loss {metrics.best_val_loss:.4f} @ epoch {metrics.best_epoch}")
 
 
 if __name__ == "__main__":

@@ -17,6 +17,10 @@ and in eval.
   the sampler's seed, the hard path's Bernoulli draws) or from injected
   uniforms (``noise=`` for the relaxation, ``hard_noise=`` for the four
   per-rank Bernoulli draws): flax's streams cannot be reproduced in torch.
+- Under data parallelism (``shard=``, a ``RowShard``) every draw is made at
+  the global batch's shape and the rank keeps its rows: the fused samplers
+  start their Philox stream at the rank's first element, the other draws
+  cut the global ``torch.rand``. D ranks draw what one process draws.
 """
 
 from __future__ import annotations
@@ -32,9 +36,11 @@ from ..ops.fused_hard_concrete import hard_concrete_fused_diff, hard_concrete_fu
 from ..ops.fused_samplers import binary_gumbel_fused_diff
 from ..ops.samplers import (
     HardConcreteParams,
+    RowShard,
     binary_gumbel,
     hard_concrete,
     hard_concrete_l0_penalty,
+    rand_rows,
     straight_through,
 )
 from ..topology.builder import SimplicialOperators, build_operators
@@ -59,18 +65,20 @@ def group_norm(groups: int, channels: int) -> nn.GroupNorm:
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None, noise: torch.Tensor | None = None
+    x: torch.Tensor, rate: float, generator: torch.Generator | None, noise: torch.Tensor | None = None,
+    shard: RowShard | None = None,
 ) -> torch.Tensor:
     """Inverted dropout as ``flax.linen.Dropout``: keep with probability
     1 - rate and scale the kept values by 1 / (1 - rate). The keep mask is
     ``u >= rate`` for uniforms ``u``: ``noise`` when given (x's shape), else
-    drawn from ``generator`` on its own device."""
+    drawn from ``generator`` on its own device (the ``shard``'s rows of the
+    global draw)."""
     if rate == 0.0:
         return x
     if noise is None:
         if generator is None:
             raise ValueError("dropout in training needs a generator or noise")
-        noise = torch.rand(x.shape, generator=generator, device=generator.device)
+        noise = rand_rows(x.shape, generator, shard)
     keep = (noise >= rate).to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
@@ -247,11 +255,13 @@ class AudioEncoder(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         dropout_noise: tuple | None = None,
+        shard: RowShard | None = None,
     ) -> torch.Tensor:
         """[B, T, num_bands] (channels-last PQMF bands) -> [B, S_total].
         In training, dropout after both hidden MLP layers, drawn from
-        ``generator``, or from ``dropout_noise``: the two layers' uniforms
-        ([B, 2048] and [B, 1024]), as ``generator`` would draw them."""
+        ``generator`` (the ``shard``'s rows of the global draw), or from
+        ``dropout_noise``: the two layers' uniforms ([B, 2048] and
+        [B, 1024]), as ``generator`` would draw them."""
         noise0, noise1 = dropout_noise if dropout_noise is not None else (None, None)
         rate = self.dropout if train else 0.0
         x = self.band_encoder.forward_ncw(bands.transpose(1, 2))  # [B, 16nb, T/8]
@@ -266,8 +276,8 @@ class AudioEncoder(nn.Module):
         y = gelu(self.red_norm2(self.red2(y)))  # [B, 8nb, frames]
         # Flatten in the JAX package's channels-last order.
         y = y.transpose(1, 2).reshape(b, -1)
-        y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator, noise0)
-        y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator, noise1)
+        y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator, noise0, shard)
+        y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator, noise1, shard)
         return self.mlp2(y)  # [B, S_total]
 
     def embed(self, probs: RectifiedProbs, idx=(None,) * 4) -> tuple:
@@ -295,37 +305,40 @@ class AudioEncoder(nn.Module):
             select_key=tuple(m + p for m, p in zip(masks, rect.ranks)),
         )
 
-    def _relax(self, biased, temperature, train, generator, noise, stretch) -> torch.Tensor:
+    def _relax(self, biased, temperature, train, generator, noise, stretch, shard=None) -> torch.Tensor:
         """The stochastic relaxation of every biased logit, in the JAX
         package's branch order (train: sampled; eval: noiseless).
-        ``stretch``: the learned (beta, gamma, zeta) rows, or None."""
+        ``stretch``: the learned (beta, gamma, zeta) rows, or None;
+        ``shard``: the rows of the global draw this rank keeps, or None."""
         fused = self.use_fused_sampler and train
+        first = shard.first(biased.numel()) if shard is not None else 0
         if self.sampler == "hard_concrete":
             if stretch is not None:
                 beta, gamma, zeta = stretch
                 if fused:
-                    return hard_concrete_fused_learned_diff(biased, generator, beta, gamma, zeta, True, noise)
-                return hard_concrete(biased, generator, beta, HardConcreteParams(gamma, zeta), train, noise)
+                    return hard_concrete_fused_learned_diff(biased, generator, beta, gamma, zeta, True, noise, first)
+                return hard_concrete(biased, generator, beta, HardConcreteParams(gamma, zeta), train, noise, shard)
             if fused:
-                return hard_concrete_fused_diff(biased, generator, temperature, True, noise)
-            return hard_concrete(biased, generator, temperature, training=train, noise=noise)
+                return hard_concrete_fused_diff(biased, generator, temperature, True, noise, first)
+            return hard_concrete(biased, generator, temperature, training=train, noise=noise, shard=shard)
         if self.hard:
             # The reference's hard path relaxes without noise before its
             # Bernoulli draw.
             t = torch.as_tensor(temperature, device=biased.device).to(biased.dtype)
             return torch.sigmoid(biased / t)
         if fused:
-            return binary_gumbel_fused_diff(biased, generator, temperature, True, noise)
-        return binary_gumbel(biased, generator, temperature, train, noise)
+            return binary_gumbel_fused_diff(biased, generator, temperature, True, noise, first)
+        return binary_gumbel(biased, generator, temperature, train, noise, shard)
 
-    def _hard_ranks(self, rect: RectifiedProbs, generator, hard_noise) -> tuple:
+    def _hard_ranks(self, rect: RectifiedProbs, generator, hard_noise, shard=None) -> tuple:
         """Per-rank Bernoulli draws of the rectified probabilities: ``u < p``
         on the uniforms ``hard_noise`` (four tensors) or drawn from
-        ``generator``; with neither, a threshold at 0.5."""
+        ``generator`` (the ``shard``'s rows of the global draw); with
+        neither, a threshold at 0.5."""
         if hard_noise is None and generator is None:
             return tuple((p > 0.5).to(p.dtype) for p in rect.ranks)
         if hard_noise is None:
-            hard_noise = [torch.rand(p.shape, generator=generator, device=generator.device) for p in rect.ranks]
+            hard_noise = [rand_rows(p.shape, generator, shard) for p in rect.ranks]
         return tuple(
             (u.to(device=p.device, dtype=p.dtype) < p).to(p.dtype) for u, p in zip(hard_noise, rect.ranks)
         )
@@ -339,6 +352,7 @@ class AudioEncoder(nn.Module):
         noise: torch.Tensor | None = None,
         hard_noise=None,
         hard_generator: torch.Generator | None = None,
+        shard: RowShard | None = None,
     ) -> EncoderOutput:
         """Sample (train) or relax without noise (eval), rectify, embed and
         assemble the operators.
@@ -347,18 +361,20 @@ class AudioEncoder(nn.Module):
         ``generator``. With ``hard``, the Bernoulli draws come from
         ``hard_noise`` (four uniform tensors, one per rank) when given, else
         from ``hard_generator`` or ``generator``, in eval as in training;
-        with neither they threshold at 0.5.
+        with neither they threshold at 0.5. With ``shard`` the logits are a
+        data-parallel rank's rows, and each generator draw is that rank's
+        rows of the global batch's draw.
         """
         v = self.sizes[0]
         biased = torch.cat(
             [logits[..., :v] + F.relu(self.vertex_bias), logits[..., v:]], dim=-1
         )
         stretch = self._hc_stretch(biased.dtype) if self.learned_hc else None
-        probs_all = self._relax(biased, temperature, train, generator, noise, stretch)
+        probs_all = self._relax(biased, temperature, train, generator, noise, stretch, shard)
         rect = enforce_constraints(*self.tables.split(probs_all), self.tables)
         if self.hard:
             draw = hard_generator if hard_generator is not None else generator
-            hard_ranks = self._hard_ranks(rect, draw, hard_noise)
+            hard_ranks = self._hard_ranks(rect, draw, hard_noise, shard)
             rect2 = enforce_constraints(*hard_ranks, self.tables)
             out_ranks = RectifiedProbs(*(
                 straight_through(h, l) for h, l in zip(rect2.ranks, self.tables.split(biased))

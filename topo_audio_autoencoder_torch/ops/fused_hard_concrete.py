@@ -6,8 +6,9 @@ Port of the Hard Concrete part of ``topo_audio_autoencoder_tpu.ops.pallas_kernel
 (``hard_concrete_fused``, ``hard_concrete_fused_learned`` and their
 differentiable ``*_diff`` forms). The kernels draw the Philox stream of
 ``fused_samplers.philox_uniform``, which the plain versions use on the CPU,
-so the CPU and the card sample the same gates from the same seed; either
-side can instead take the uniforms as a tensor (``noise=``).
+so the CPU and the card sample the same gates from the same seed, from
+element ``first`` of the stream (a data-parallel rank's rows of the global
+draw); either side can instead take the uniforms as a tensor (``noise=``).
 
 ``hard_concrete_sample`` and ``hard_concrete_learned_sample`` take the
 plain version for CPU tensors and launch a kernel for CUDA tensors (each
@@ -63,9 +64,9 @@ def _kernels():
     lib = load("hard_concrete")
     ptr, i64, u64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64, ctypes.c_float, ctypes.c_int
     signatures = {
-        "hard_concrete_philox": [ptr] * 3 + [i64, u64, u64, f32, f32, f32, i32, ptr],
+        "hard_concrete_philox": [ptr] * 3 + [i64, u64, u64, u64, f32, f32, f32, i32, ptr],
         "hard_concrete_noise": [ptr] * 3 + [i64, f32, f32, f32, i32, ptr],
-        "hard_concrete_learned_philox": [ptr] * 6 + [i64, i64, u64, u64, i32, ptr],
+        "hard_concrete_learned_philox": [ptr] * 6 + [i64, i64, u64, u64, u64, i32, ptr],
         "hard_concrete_learned_noise": [ptr] * 6 + [i64, i64, i32, ptr],
         "hard_concrete_bwd": [ptr] * 3 + [i64, f32, f32, f32, i32, i32, i32, ptr],
         "hard_concrete_learned_bwd": [ptr] * 9 + [i64, i64, i32, i32, i32, ptr],
@@ -88,19 +89,21 @@ def hard_concrete_sample(
     return_noise: bool = False,
     gamma: float = GAMMA,
     zeta: float = ZETA,
+    first: int = 0,
 ):
     """``z = clip(sigmoid((logistic(u) + a) / T) (zeta - gamma) + gamma, 0, 1)``
     in one pass, with a fixed stretch.
 
     ``u`` is ``noise`` (fp32 uniforms of log-alpha's shape) when given,
-    else the Philox stream of (``seed``, ``offset``). With ``return_noise``
+    else the Philox stream of (``seed``, ``offset``) from element
+    ``first``. With ``return_noise``
     the uniforms used are returned too: ``(z, u)``. CPU tensors take the
     plain version; CUDA tensors launch the kernel; any other device raises.
     """
     temperature, gamma, zeta = float(temperature), float(gamma), float(zeta)
     if not temperature > 0.0:
         raise ValueError(f"temperature must be positive, not {temperature}")
-    noise = _check_inputs(log_alpha, seed, offset, noise, "hard_concrete_sample")
+    noise = _check_inputs(log_alpha, seed, offset, noise, "hard_concrete_sample", first)
 
     def launch(out, noise, u_out, stream):
         fns = _kernels()
@@ -111,13 +114,14 @@ def hard_concrete_sample(
         else:
             err = fns["hard_concrete_philox"](
                 log_alpha.data_ptr(), out.data_ptr(), 0 if u_out is None else u_out.data_ptr(),
-                log_alpha.numel(), seed, offset, temperature, gamma, zeta, code, stream)
+                log_alpha.numel(), seed, offset, first, temperature, gamma, zeta, code, stream)
         if err == 0:
             hard_concrete_sample.launches += 1
         return err
 
     return _run(log_alpha, seed, offset, noise, return_noise,
-                lambda u: hard_concrete_plain(log_alpha, u, temperature, gamma, zeta), launch, "hard_concrete")
+                lambda u: hard_concrete_plain(log_alpha, u, temperature, gamma, zeta), launch, "hard_concrete",
+                first)
 
 
 hard_concrete_sample.launches = 0
@@ -132,6 +136,7 @@ def hard_concrete_learned_sample(
     offset: int = 0,
     noise: torch.Tensor | None = None,
     return_noise: bool = False,
+    first: int = 0,
 ):
     """The Hard Concrete gate with a learned per-simplex stretch: ``beta``
     (in place of the temperature), ``gamma`` and ``zeta`` are [S] rows over
@@ -141,7 +146,7 @@ def hard_concrete_learned_sample(
     for name, row in (("beta", beta), ("gamma", gamma), ("zeta", zeta)):
         if tuple(row.shape) != (cols,):
             raise ValueError(f"{name} {tuple(row.shape)} must be a row of log_alpha's last axis ({cols},)")
-    noise = _check_inputs(log_alpha, seed, offset, noise, "hard_concrete_learned_sample")
+    noise = _check_inputs(log_alpha, seed, offset, noise, "hard_concrete_learned_sample", first)
     rows = [r.detach().to(device=log_alpha.device, dtype=torch.float32).contiguous() for r in (beta, gamma, zeta)]
 
     def launch(out, noise, u_out, stream):
@@ -155,13 +160,13 @@ def hard_concrete_learned_sample(
         else:
             err = fns["hard_concrete_learned_philox"](
                 log_alpha.data_ptr(), *ptrs, out.data_ptr(), 0 if u_out is None else u_out.data_ptr(),
-                log_alpha.numel(), cols, seed, offset, code, stream)
+                log_alpha.numel(), cols, seed, offset, first, code, stream)
         if err == 0:
             hard_concrete_learned_sample.launches += 1
         return err
 
     return _run(log_alpha, seed, offset, noise, return_noise,
-                lambda u: hard_concrete_learned_plain(log_alpha, u, *rows), launch, "hard_concrete_learned")
+                lambda u: hard_concrete_learned_plain(log_alpha, u, *rows), launch, "hard_concrete_learned", first)
 
 
 hard_concrete_learned_sample.launches = 0
@@ -306,9 +311,9 @@ class HardConcrete(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, log_alpha, temperature, training, seed, noise):
+    def forward(ctx, log_alpha, temperature, training, seed, noise, first):
         if training:
-            z = hard_concrete_sample(log_alpha, temperature, seed=seed, noise=noise)
+            z = hard_concrete_sample(log_alpha, temperature, seed=seed, noise=noise, first=first)
         else:
             z = hard_concrete(log_alpha, None, temperature, training=False)
         ctx.save_for_backward(z)
@@ -318,7 +323,7 @@ class HardConcrete(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (z,) = ctx.saved_tensors
-        return hard_concrete_bwd(z, ct, ctx.temperature, ctx.training), None, None, None, None
+        return hard_concrete_bwd(z, ct, ctx.temperature, ctx.training), None, None, None, None, None
 
 
 class HardConcreteLearned(torch.autograd.Function):
@@ -334,9 +339,9 @@ class HardConcreteLearned(torch.autograd.Function):
     the stretch cotangents summed over the batch axes to [S]."""
 
     @staticmethod
-    def forward(ctx, log_alpha, beta, gamma, zeta, training, seed, noise):
+    def forward(ctx, log_alpha, beta, gamma, zeta, training, seed, noise, first):
         if training:
-            z = hard_concrete_learned_sample(log_alpha, beta, gamma, zeta, seed=seed, noise=noise)
+            z = hard_concrete_learned_sample(log_alpha, beta, gamma, zeta, seed=seed, noise=noise, first=first)
         else:
             z = hard_concrete(log_alpha, None, beta, HardConcreteParams(gamma, zeta), training=False)
         ctx.save_for_backward(z, beta, gamma, zeta)
@@ -346,7 +351,7 @@ class HardConcreteLearned(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         z, beta, gamma, zeta = ctx.saved_tensors
-        return (*hard_concrete_learned_bwd(z, ct, beta, gamma, zeta, ctx.training), None, None, None)
+        return (*hard_concrete_learned_bwd(z, ct, beta, gamma, zeta, ctx.training), None, None, None, None)
 
 
 def hard_concrete_fused_diff(
@@ -355,12 +360,14 @@ def hard_concrete_fused_diff(
     temperature,
     training: bool = True,
     noise: torch.Tensor | None = None,
+    first: int = 0,
 ) -> torch.Tensor:
     """Fixed-stretch Hard Concrete through the fused pass, with the
     closed-form gradient to log-alpha. The seed comes from ``generator``
-    unless ``noise`` is given; eval mode is the noiseless gate."""
+    unless ``noise`` is given, and the draw starts at element ``first`` of
+    its stream; eval mode is the noiseless gate."""
     seed = _seed(generator, noise) if training else 0
-    return HardConcrete.apply(log_alpha, float(temperature), training, seed, noise)
+    return HardConcrete.apply(log_alpha, float(temperature), training, seed, noise, first)
 
 
 def hard_concrete_fused_learned_diff(
@@ -371,8 +378,10 @@ def hard_concrete_fused_learned_diff(
     zeta: torch.Tensor,
     training: bool = True,
     noise: torch.Tensor | None = None,
+    first: int = 0,
 ) -> torch.Tensor:
     """Learned-stretch Hard Concrete through the fused pass, with the
-    closed-form gradients to log-alpha and to the [S] stretch rows."""
+    closed-form gradients to log-alpha and to the [S] stretch rows (the
+    draw from element ``first``, as ``hard_concrete_fused_diff``)."""
     seed = _seed(generator, noise) if training else 0
-    return HardConcreteLearned.apply(log_alpha, beta, gamma, zeta, training, seed, noise)
+    return HardConcreteLearned.apply(log_alpha, beta, gamma, zeta, training, seed, noise, first)

@@ -7,7 +7,10 @@ The kernel draws its uniforms with Philox4x32-10 keyed by (seed, offset);
 ``philox_uniform`` computes the same stream in plain torch, bit for bit, so
 the CPU and the card sample the same noise from the same seed. Either side
 can instead take the uniforms as a tensor (``noise=``), which is how the
-tests hand both packages the same numbers.
+tests hand both packages the same numbers. ``first`` starts a draw at
+element ``first`` of the stream: a data-parallel rank draws its rows of
+the global batch's draw with ``first`` = its first row times the row
+length, and ``first=0`` is the whole batch's draw.
 
 ``binary_gumbel_sample`` takes the plain version for CPU tensors and
 launches the kernel for CUDA tensors (``launches`` counts those launches);
@@ -42,15 +45,16 @@ def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def philox_uniform(numel: int, seed: int, offset: int = 0, device=None) -> torch.Tensor:
-    """The kernel's uniforms for elements 0 .. numel-1, in plain torch.
+def philox_uniform(numel: int, seed: int, offset: int = 0, device=None, first: int = 0) -> torch.Tensor:
+    """The kernel's uniforms for elements first .. first+numel-1, in plain
+    torch.
 
     Philox4x32-10 with key = the 64-bit seed and counter = (g, offset) for
     the group g of elements 4g .. 4g+3; word j of a block becomes
-    ``(word >> 8) * 2^-24`` clipped to [1e-6, 1 - 1e-6]. Returns fp32 [numel].
+    ``(word >> 8) * 2^-24`` clipped to [1e-6, 1 - 1e-6]. Element e is word
+    e & 3 of group e >> 2. Returns fp32 [numel].
     """
-    groups = (numel + 3) // 4
-    g = torch.arange(groups, dtype=torch.int64, device=device)
+    g = torch.arange(first >> 2, (first + numel + 3) >> 2, dtype=torch.int64, device=device)
     c = [g & _MASK32, g >> 32,
          torch.full_like(g, offset & _MASK32), torch.full_like(g, (offset >> 32) & _MASK32)]
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
@@ -61,7 +65,8 @@ def philox_uniform(numel: int, seed: int, offset: int = 0, device=None) -> torch
         hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
         hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
         c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
-    bits = torch.stack(c, dim=-1).reshape(-1)[:numel]
+    lead = first & 3
+    bits = torch.stack(c, dim=-1).reshape(-1)[lead : lead + numel]
     u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return torch.clamp(u, UNIFORM_MIN, UNIFORM_MAX)
 
@@ -82,7 +87,7 @@ def _kernels():
     lib = load("binary_gumbel")
     philox = lib.binary_gumbel_philox
     philox.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
-                                               ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                                               ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     philox.restype = ctypes.c_int
     noise = lib.binary_gumbel_noise
     noise.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_float, ctypes.c_int,
@@ -95,12 +100,15 @@ def _kernels():
     return philox, noise, bwd
 
 
-def _check_inputs(x: torch.Tensor, seed: int, offset: int, noise: torch.Tensor | None, what: str):
+def _check_inputs(x: torch.Tensor, seed: int, offset: int, noise: torch.Tensor | None, what: str,
+                  first: int = 0):
     """Validates a sampler's input ``x`` for its device and the draw's
-    (seed, offset) or uniforms; returns the uniforms, if given, as fp32 on
-    ``x``'s device."""
+    (seed, offset, first) or uniforms; returns the uniforms, if given, as
+    fp32 on ``x``'s device."""
     if not 0 <= seed < 2**64 or not 0 <= offset < 2**64:
         raise ValueError("seed and offset are unsigned 64-bit integers")
+    if not 0 <= first <= 2**64 - 1 - x.numel():
+        raise ValueError(f"first={first}: the draw's elements must have unsigned 64-bit indices")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda tensors, not {x.device}")
     if x.device.type == "cuda":
@@ -124,14 +132,15 @@ def launch_checked(launch, device: torch.device, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def _run(x, seed, offset, noise, return_noise, plain, launch, what):
+def _run(x, seed, offset, noise, return_noise, plain, launch, what, first=0):
     """One sampler pass over ``x``: ``plain(u)`` for a CPU tensor, on the
-    uniforms ``noise`` or the Philox stream of (seed, offset); for a CUDA
+    uniforms ``noise`` or the Philox stream of (seed, offset) from element
+    ``first``; for a CUDA
     tensor the kernel, through ``launch(out, noise, u_out, stream) -> CUDA
     error code`` (``u_out``, when not None, receives the kernel's
     uniforms). Returns the output, and the uniforms with ``return_noise``."""
     if x.device.type == "cpu":
-        u = noise if noise is not None else philox_uniform(x.numel(), seed, offset, x.device).reshape(x.shape)
+        u = noise if noise is not None else philox_uniform(x.numel(), seed, offset, x.device, first).reshape(x.shape)
         out = plain(u)
         return (out, u) if return_noise else out
     u_out = None
@@ -151,18 +160,20 @@ def binary_gumbel_sample(
     offset: int = 0,
     noise: torch.Tensor | None = None,
     return_noise: bool = False,
+    first: int = 0,
 ):
     """``s = sigmoid((2l - 1 + logistic(u)) / T)`` in one pass.
 
     ``u`` is ``noise`` (fp32 uniforms of the logits' shape) when given,
-    else the Philox stream of (``seed``, ``offset``). With ``return_noise``
+    else the Philox stream of (``seed``, ``offset``) from element
+    ``first``. With ``return_noise``
     the uniforms used are returned too: ``(s, u)``. CPU tensors take the
     plain version; CUDA tensors launch the kernel; any other device raises.
     """
     temperature = float(temperature)
     if not temperature > 0.0:
         raise ValueError(f"temperature must be positive, not {temperature}")
-    noise = _check_inputs(logits, seed, offset, noise, "binary_gumbel_sample")
+    noise = _check_inputs(logits, seed, offset, noise, "binary_gumbel_sample", first)
 
     def launch(out, noise, u_out, stream):
         philox, from_noise, _ = _kernels()
@@ -172,13 +183,13 @@ def binary_gumbel_sample(
                              logits.numel(), temperature, code, stream)
         else:
             err = philox(logits.data_ptr(), out.data_ptr(), 0 if u_out is None else u_out.data_ptr(),
-                         logits.numel(), seed, offset, temperature, code, stream)
+                         logits.numel(), seed, offset, first, temperature, code, stream)
         if err == 0:
             binary_gumbel_sample.launches += 1
         return err
 
     return _run(logits, seed, offset, noise, return_noise,
-                lambda u: binary_gumbel_plain(logits, u, temperature), launch, "binary_gumbel")
+                lambda u: binary_gumbel_plain(logits, u, temperature), launch, "binary_gumbel", first)
 
 
 binary_gumbel_sample.launches = 0
@@ -255,13 +266,16 @@ def binary_gumbel_fused(
     temperature,
     training: bool = True,
     noise: torch.Tensor | None = None,
+    first: int = 0,
 ) -> torch.Tensor:
     """Binary Gumbel sample through the fused pass; eval mode thresholds
     at 0.5 like ``samplers.binary_gumbel``. The seed comes from
-    ``generator`` unless ``noise`` is given."""
+    ``generator`` unless ``noise`` is given; the draw starts at element
+    ``first`` of its stream."""
     if not training:
         return binary_gumbel(logits, None, temperature, training=False)
-    return binary_gumbel_sample(logits, float(temperature), seed=_seed(generator, noise), noise=noise)
+    return binary_gumbel_sample(logits, float(temperature), seed=_seed(generator, noise), noise=noise,
+                                first=first)
 
 
 class BinaryGumbel(torch.autograd.Function):
@@ -270,8 +284,8 @@ class BinaryGumbel(torch.autograd.Function):
     temperature takes no gradient."""
 
     @staticmethod
-    def forward(ctx, logits, temperature, seed, noise):
-        s = binary_gumbel_sample(logits, temperature, seed=seed, noise=noise)
+    def forward(ctx, logits, temperature, seed, noise, first):
+        s = binary_gumbel_sample(logits, temperature, seed=seed, noise=noise, first=first)
         ctx.save_for_backward(s)
         ctx.temperature = float(temperature)
         return s
@@ -279,7 +293,7 @@ class BinaryGumbel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (s,) = ctx.saved_tensors
-        return binary_gumbel_bwd(s, ct, ctx.temperature), None, None, None
+        return binary_gumbel_bwd(s, ct, ctx.temperature), None, None, None, None
 
 
 def binary_gumbel_fused_diff(
@@ -288,9 +302,10 @@ def binary_gumbel_fused_diff(
     temperature,
     training: bool = True,
     noise: torch.Tensor | None = None,
+    first: int = 0,
 ) -> torch.Tensor:
     """``binary_gumbel_fused`` with the closed-form gradient to the logits
     (eval mode: a threshold, with no gradient)."""
     if not training:
         return binary_gumbel(logits, None, temperature, training=False)
-    return BinaryGumbel.apply(logits, float(temperature), _seed(generator, noise), noise)
+    return BinaryGumbel.apply(logits, float(temperature), _seed(generator, noise), noise, first)

@@ -6,6 +6,11 @@ Port of ``topo_audio_autoencoder_tpu.ops.samplers``. These are the plain
 samplers, drawing their noise with ``torch.rand`` from an explicit
 generator or taking it as a tensor; the encoder's default train path is the
 fused kernels in ``ops.fused_samplers``.
+
+Under data parallelism each rank holds a block of the global batch's rows
+(``RowShard``): its draws are made at the global shape from the step's
+generator, and it keeps its rows, so that D ranks draw what one process
+draws for the whole batch.
 """
 
 from __future__ import annotations
@@ -32,10 +37,41 @@ def straight_through(hard: torch.Tensor, soft: torch.Tensor) -> torch.Tensor:
     return soft + (hard - soft).detach()
 
 
-def uniform_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+@dataclass(frozen=True)
+class RowShard:
+    """Block ``index`` of ``count`` equal row blocks of a global batch: the
+    rows that one data-parallel rank holds."""
+
+    index: int = 0
+    count: int = 1
+
+    def rows(self, draw, shape) -> torch.Tensor:
+        """``draw(global shape)``, the leading axis ``count`` times
+        ``shape[0]``, cut to this block's ``shape[0]`` rows."""
+        n = shape[0]
+        return draw((n * self.count, *shape[1:]))[self.index * n : (self.index + 1) * n]
+
+    def first(self, numel: int) -> int:
+        """Where this block starts in the flattened global draw, for a
+        block of ``numel`` elements."""
+        return self.index * numel
+
+
+def rand_rows(shape, generator: torch.Generator, shard: RowShard | None = None) -> torch.Tensor:
+    """``torch.rand`` of ``shape`` from ``generator`` on its own device; with
+    ``shard``, the shard's rows of the draw at the global shape."""
+
+    def draw(s):
+        return torch.rand(s, generator=generator, device=generator.device)
+
+    return draw(shape) if shard is None else shard.rows(draw, tuple(shape))
+
+
+def uniform_noise(shape, generator: torch.Generator, device, shard: RowShard | None = None) -> torch.Tensor:
     """fp32 uniforms on [1e-6, 1 - 1e-6] from ``generator``, on ``device``
-    (drawn on the generator's own device, then moved)."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    (drawn on the generator's own device, then moved); with ``shard``, its
+    rows of the draw at the global shape."""
+    u = rand_rows(shape, generator, shard)
     return (u * (UNIFORM_MAX - UNIFORM_MIN) + UNIFORM_MIN).to(device)
 
 
@@ -50,12 +86,14 @@ def binary_gumbel(
     temperature,
     training: bool = True,
     noise: torch.Tensor | None = None,
+    shard: RowShard | None = None,
 ) -> torch.Tensor:
     """Binary Gumbel-softmax relaxation.
 
     Train mode: ``sigmoid((2l - 1 + logistic(u)) / T)`` with ``u`` uniform
-    on [1e-6, 1 - 1e-6], drawn from ``generator`` or given as ``noise`` (a
-    tensor of uniforms of the logits' shape). It computes in the logits'
+    on [1e-6, 1 - 1e-6], drawn from ``generator`` (the ``shard``'s rows of
+    the global draw) or given as ``noise`` (a tensor of uniforms of the
+    logits' shape). It computes in the logits'
     dtype: the temperature is cast to it, so an fp32 temperature never
     promotes a bf16 relaxation (and everything after it) to fp32.
     Eval mode thresholds the noiseless relaxation at 0.5, which reduces to
@@ -66,7 +104,7 @@ def binary_gumbel(
     if noise is None:
         if generator is None:
             raise ValueError("binary_gumbel(training=True) needs a generator or noise")
-        noise = uniform_noise(logits.shape, generator, logits.device)
+        noise = uniform_noise(logits.shape, generator, logits.device, shard)
     n = logistic_noise(noise.to(logits.dtype))
     t = torch.as_tensor(temperature, device=logits.device).to(logits.dtype)
     return torch.sigmoid((2.0 * logits - 1.0 + n) / t)
@@ -91,11 +129,13 @@ def hard_concrete(
     params: HardConcreteParams = HardConcreteParams(),
     training: bool = True,
     noise: torch.Tensor | None = None,
+    shard: RowShard | None = None,
 ) -> torch.Tensor:
     """Hard Concrete relaxation of a Bernoulli gate.
 
     train: ``s = sigmoid((logistic(u) + log_alpha) / T)``, ``u`` drawn from
-    ``generator`` or given as ``noise``; eval: ``s = sigmoid(log_alpha)``;
+    ``generator`` (the ``shard``'s rows of the global draw) or given as
+    ``noise``; eval: ``s = sigmoid(log_alpha)``;
     both ``z = clip(s (zeta - gamma) + gamma, 0, 1)``. Exactly 0 or 1 with
     positive probability. Computes in log-alpha's dtype (the temperature,
     a scalar or a per-simplex row, is cast to it).
@@ -105,7 +145,7 @@ def hard_concrete(
         if noise is None:
             if generator is None:
                 raise ValueError("hard_concrete(training=True) needs a generator or noise")
-            noise = uniform_noise(log_alpha.shape, generator, log_alpha.device)
+            noise = uniform_noise(log_alpha.shape, generator, log_alpha.device, shard)
         n = logistic_noise(noise.to(log_alpha.dtype))
         t = torch.as_tensor(temperature, device=log_alpha.device).to(log_alpha.dtype)
         s = torch.sigmoid((n + log_alpha) / t)

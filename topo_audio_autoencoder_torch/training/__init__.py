@@ -17,6 +17,7 @@ from .train_step import (
     make_optimizer,
     make_scan_indexed_train_step,
     make_scan_train_step,
+    make_sharded_corpus_gather,
     make_train_step,
 )
 from .trainer import Trainer, TrainerConfig
@@ -43,5 +44,6 @@ __all__ = [
     "make_optimizer",
     "make_scan_indexed_train_step",
     "make_scan_train_step",
+    "make_sharded_corpus_gather",
     "make_train_step",
 ]

@@ -29,9 +29,22 @@ step, the corpus-indexed step and the scanned steps.
   device, returning each metric stacked to [K]. The step counter advances
   through the loop, so K scanned steps equal K single ones.
 - ``donate`` is accepted with the JAX package's default and has no effect
-  (the step updates in place). ``mesh`` and ``shard_corpus`` belong to
-  data-parallel training, which is still to come (ROADMAP.md, Queue 1
-  item 6): they raise ``NotImplementedError``.
+  (the step updates in place).
+- Data parallelism (``mesh=``, a ``parallel.DataMesh``): each rank runs
+  the step on its rows of the global batch, with each random draw made at
+  the global shape and cut to its rows. After the backward the gradients
+  are flattened in parameter order into one fp32 buffer and averaged over
+  the ranks by one all-reduce (sum, then / D), before the optimizer, on
+  every micro-step (so the accumulated mean is over averaged gradients, as
+  ``optax.MultiSteps`` sees them); the metrics are averaged by one more.
+  The ranks' means over equal shards are the global batch's means, so the
+  D-rank step computes the 1-rank step. ``DistributedDataParallel`` does
+  not fit: it needs ``.backward()`` on a wrapped module, and the step runs
+  ``functional_call`` on cast parameters with ``autograd.grad``.
+- The indexed steps take the global [B, G] index matrix on every rank.
+  With a mesh the corpus is either on every rank (each gathers its rows)
+  or split by rows over the ranks (``shard_corpus``,
+  ``make_sharded_corpus_gather``).
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters and the optimizer state in place and returns the same state.
@@ -43,12 +56,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 from torch import nn
 
 from ..models.autoencoder import AudioAutoencoder
 from ..models.encoder import info_nce_loss, rank_diversity_entropy, vertex_count_penalty
 from ..ops.samplers import temperature_schedule
+from ..parallel import mean_over_ranks, row_shard, shard_batch
 from .losses import LossWeights, autoencoder_loss
 
 
@@ -204,20 +219,21 @@ class _Objective(nn.Module):
         self.model = model
         self.weights = weights
 
-    def forward(self, batch, temperature, compute_dtype, sample_gen, dropout_gen, noise, hard_noise):
+    def forward(self, batch, temperature, compute_dtype, sample_gen, dropout_gen, noise, hard_noise, shard):
         model = self.model
         b, g, _, t = batch.shape
         flat = batch.reshape(b * g, 1, t).to(compute_dtype)
         # Encoder logits for ALL group members (contrastive needs them)...
         bands = model.pqmf(flat)
-        logits = model.encoder.compute_logits(bands.transpose(-1, -2), True, dropout_gen)
+        logits = model.encoder.compute_logits(bands.transpose(-1, -2), True, dropout_gen, shard=shard)
         contrastive = None
         if g >= 3:
             contrastive = info_nce_loss(logits.reshape(b, g, -1).to(torch.float32))
         # ...then complex and decode for the anchors only.
         anchor_logits = logits.reshape(b, g, -1)[:, 0]
         enc = model.encoder.generate_complex(
-            anchor_logits, temperature, True, sample_gen, noise, hard_noise, hard_generator=dropout_gen
+            anchor_logits, temperature, True, sample_gen, noise, hard_noise, hard_generator=dropout_gen,
+            shard=shard,
         )
         anchors = flat.reshape(b, g, 1, t)[:, 0]
         recon = model.decode(enc, t // model.num_bands, True)
@@ -242,12 +258,16 @@ def make_loss_and_grads(
     model: AudioAutoencoder,
     weights: LossWeights = LossWeights(),
     compute_dtype: torch.dtype = torch.float32,
+    mesh=None,
 ):
     """``loss_and_grads(batch, temperature, seed, step, noise=None,
     hard_noise=None) -> (total, components, grads)``: the step's forward and
     backward without the update. ``grads`` maps every parameter name to its
-    fp32 gradient."""
+    fp32 gradient. With ``mesh``, ``batch`` (and ``noise``, ``hard_noise``)
+    are this rank's rows of the global batch, and the loss, components and
+    gradients come back averaged over the ranks: the global batch's."""
     objective = _Objective(model, weights)
+    shard = row_shard(mesh)
 
     def loss_and_grads(batch, temperature, seed: int, step: int, noise=None, hard_noise=None):
         params = dict(model.named_parameters())
@@ -261,14 +281,19 @@ def make_loss_and_grads(
         cast = {f"model.{n}": p.to(compute_dtype) for n, p in params.items()}
         total, components = torch.func.functional_call(
             objective, cast,
-            (batch, float(temperature), compute_dtype, sample_gen, dropout_gen, noise, hard_noise),
+            (batch, float(temperature), compute_dtype, sample_gen, dropout_gen, noise, hard_noise, shard),
         )
         grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
         grads = {
             n: torch.zeros_like(p) if gr is None else gr.to(torch.float32)
             for (n, p), gr in zip(params.items(), grads)
         }
-        return total.detach(), {k: v.detach() for k, v in components.items()}, grads
+        components = {k: v.detach() for k, v in components.items()}
+        if mesh is not None:
+            grads = dict(zip(grads, mean_over_ranks(list(grads.values()), mesh)))
+            components = dict(zip(components, mean_over_ranks(list(components.values()), mesh)))
+            total = components["total_loss"]
+        return total.detach(), components, grads
 
     return loss_and_grads
 
@@ -279,6 +304,7 @@ def make_train_step(
     weights: LossWeights = LossWeights(),
     compute_dtype: torch.dtype = torch.float32,
     with_grad_norms: bool = False,
+    mesh=None,
 ):
     """``train_step(state, batch, temperature, seed, noise=None,
     hard_noise=None) -> (state, metrics)``. Batch: [B, G, 1, T] (G = 1
@@ -287,10 +313,12 @@ def make_train_step(
     [B, S_total]) replaces the sampler's draw and ``hard_noise`` (four
     per-rank uniform tensors [B, S_r]) a hard model's Bernoulli draws.
     Metrics are 0-d tensors on the model's device (no synchronisation),
-    with ``grad_norms`` when asked."""
+    with ``grad_norms`` when asked. With ``mesh`` the batch and the noise
+    are this rank's rows (``parallel.shard_batch``), and the update and the
+    metrics are the global batch's on every rank."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
-    loss_and_grads = make_loss_and_grads(model, weights, compute_dtype)
+    loss_and_grads = make_loss_and_grads(model, weights, compute_dtype, mesh)
 
     def train_step(state: TrainState, batch, temperature, seed: int, noise=None, hard_noise=None):
         if state.model is not model:
@@ -327,14 +355,6 @@ def anneal_temperature(epoch, initial_temp: float = 5.0, min_temp: float = 0.1, 
     return temperature_schedule(epoch, initial_temp, min_temp, decay)
 
 
-def _no_data_parallel(mesh, shard_corpus: bool) -> None:
-    if mesh is not None or shard_corpus:
-        raise NotImplementedError(
-            "mesh and shard_corpus belong to data-parallel training, which the port does not "
-            "have yet (ROADMAP.md, Queue 1 item 6: DistributedDataParallel)"
-        )
-
-
 def gather_batch(corpus: torch.Tensor, idxs) -> torch.Tensor:
     """``corpus[idxs][:, :, None, :]``: the [B, G, 1, T] batch of the [B, G]
     index matrix ``idxs`` (int32 or int64), gathered on the corpus's device."""
@@ -348,6 +368,48 @@ def device_corpus(corpus, device) -> torch.Tensor:
     if isinstance(corpus, torch.Tensor):
         return corpus.to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.ascontiguousarray(corpus, dtype=np.float32)).to(device)
+
+
+def make_sharded_corpus_gather(mesh, corpus):
+    """The train corpus split by rows over the ranks, and a gather that
+    builds each rank's batch from the split rows.
+
+    Port of the JAX package's ``make_sharded_corpus_gather``: the corpus is
+    padded with zero rows to a multiple of D on the host, and each rank
+    places only its ceil(N / D) rows on its device, so D ranks hold a corpus
+    D times one card's memory. Each step, every rank takes the global
+    [B, G] index matrix, gathers the rows it owns (zeros for the others'),
+    and one ``reduce_scatter_tensor`` over the batch axis sums the ranks'
+    contributions (one rank owns each row, so the sum is exact) and leaves
+    each rank its [B/D, G] block: the rows the replicated corpus would
+    gather.
+
+    Returns ``(corpus_dev, gather)``, with ``gather(corpus_dev, idxs) ->
+    [B/D, G, 1, T]`` this rank's rows of the batch.
+    """
+    d, rank = mesh.size, mesh.rank
+    host = corpus.detach().cpu().numpy() if isinstance(corpus, torch.Tensor) else np.asarray(corpus)
+    n, t = host.shape
+    n_local = -(-n // d)
+    rows = host[rank * n_local : (rank + 1) * n_local].astype(np.float32)
+    local = np.zeros((n_local, t), np.float32)
+    local[: rows.shape[0]] = rows
+    corpus_dev = torch.from_numpy(local).to(mesh.device)
+
+    def gather(shard, idxs):
+        idx = torch.as_tensor(idxs, device=shard.device).to(torch.int64)
+        b, g = idx.shape
+        if b % d:
+            raise ValueError(f"a batch of {b} rows does not split over {d} ranks")
+        pos = idx - rank * n_local
+        owned = (pos >= 0) & (pos < n_local)
+        got = shard.index_select(0, pos.clamp(0, n_local - 1).reshape(-1)).reshape(b, g, t)
+        got = torch.where(owned[..., None], got, torch.zeros((), dtype=got.dtype, device=got.device))
+        out = torch.empty((b // d, g, t), dtype=got.dtype, device=got.device)
+        dist.reduce_scatter_tensor(out, got, group=mesh.group)
+        return out[:, :, None, :]
+
+    return corpus_dev, gather
 
 
 def make_indexed_train_step(
@@ -364,13 +426,24 @@ def make_indexed_train_step(
     """``indexed_step(state, idxs, temperature, seed) -> (state, metrics)``:
     the train step over a corpus (``[N, T]`` numpy array or tensor) placed
     on the model's device once. Each call takes a [B, G] index matrix and
-    gathers its batch there; the sampling is ``NSynthDataset``'s."""
-    _no_data_parallel(mesh, shard_corpus)
-    base = make_train_step(model, optimizer, weights, compute_dtype, with_grad_norms)
-    corpus_dev = device_corpus(corpus, next(model.parameters()).device)
+    gathers its batch there; the sampling is ``NSynthDataset``'s.
+
+    With ``mesh`` every rank takes the global index matrix and steps on its
+    rows: by default the corpus is on every rank and each gathers its rows
+    locally; ``shard_corpus=True`` splits the corpus by rows over the ranks
+    (``make_sharded_corpus_gather``), for corpora larger than one card.
+    ``shard_corpus`` without a mesh is ignored, as in the JAX package."""
+    base = make_train_step(model, optimizer, weights, compute_dtype, with_grad_norms, mesh)
+    if mesh is not None and shard_corpus:
+        corpus_dev, gather = make_sharded_corpus_gather(mesh, corpus)
+    else:
+        corpus_dev = device_corpus(corpus, next(model.parameters()).device)
+
+        def gather(corpus, idxs):
+            return gather_batch(corpus, shard_batch(idxs, mesh))
 
     def indexed_step(state: TrainState, idxs, temperature, seed: int):
-        return base(state, gather_batch(corpus_dev, idxs), temperature, seed)
+        return base(state, gather(corpus_dev, idxs), temperature, seed)
 
     return indexed_step
 
@@ -405,7 +478,8 @@ def make_scan_indexed_train_step(
 ):
     """The scanned variant of ``make_indexed_train_step``: takes [K, B, G]
     index matrices and runs K steps, each gathering its batch from the
-    device corpus."""
+    device corpus (with ``mesh``, each rank its rows of each step's
+    batch)."""
     return make_scan_train_step(
         make_indexed_train_step(
             model, optimizer, corpus, weights, compute_dtype, with_grad_norms, mesh=mesh,

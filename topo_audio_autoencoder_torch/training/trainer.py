@@ -38,10 +38,21 @@ What differs, and why:
 - An asynchronous save first clones every parameter and moment on the
   device (the next step overwrites the live ones), then a thread copies
   the clones to the host on a side stream that waits for them, and writes.
-- Data-parallel training (``data_parallel``, ``shard_corpus``) is not
-  ported yet (ROADMAP.md, Queue 1 item 6): it raises
-  ``NotImplementedError``. ``tune_hyperparameters_vmapped`` runs the
-  vmapped grid tuner (``training/tuner.py``) on one device.
+- Data-parallel training (``data_parallel``) runs one process a device
+  (``torchrun --nproc_per_node=N``) on the data mesh of ``parallel``:
+  every rank runs the same NumPy sampling with the same seed and steps on
+  its rows of each batch; the steps average the gradients and metrics over
+  the ranks, so every rank holds the same state and takes the same
+  decisions. The state is broadcast from rank 0 after ``init_state`` and
+  after every restore. ``validate`` evaluates each rank's rows and gathers
+  the per-clip losses of every batch, summed then as one process sums
+  them. Only rank 0 writes checkpoints, ``metrics.json``,
+  ``train_log.jsonl`` and audio dumps, and every write is followed by a
+  barrier, so that every rank can read back what was written.
+  ``shard_corpus`` splits the train corpus by rows over the ranks
+  (``make_sharded_corpus_gather``). The vmapped grid tuner
+  (``tune_hyperparameters_vmapped``, ``training/tuner.py``) runs on the
+  same mesh.
 
 No interactive prompts: everything is constructor config. The trainer runs
 on ``config.device``: the CUDA card unless it says ``"cpu"``.
@@ -58,13 +69,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from ..data.dataset import NSynthDataset, batch_iterator, index_iterator, prefetch_to_device
 from ..data.preprocess import save_wav
 from ..device import resolve_device
 from ..models.autoencoder import AudioAutoencoder
-from ..parallel import pad_to_multiple
+from ..parallel import gather_rows, make_mesh, pad_to_multiple, replicate, shard_batch
 from .checkpoint import CheckpointManager, to_host
 from .losses import LossWeights
 from .metrics import MetricWriter, TrainingMetrics
@@ -79,9 +91,6 @@ from .train_step import (
     make_scan_indexed_train_step,
     make_train_step,
 )
-
-NOT_PORTED = "is not ported yet (ROADMAP.md, Queue 1 item 6: DistributedDataParallel)"
-
 
 def split_key(key) -> tuple[list, int]:
     """(new key, 64-bit seed): a pure function of the key ``[hi, lo]``."""
@@ -129,10 +138,16 @@ class TrainerConfig:
     # Keep the training corpus on the device and send only [B, G] index
     # matrices per step; the step gathers the rows there.
     device_corpus: bool = True
-    # Data-parallel training and a corpus sharded across devices: not
-    # ported yet, they raise NotImplementedError.
+    # Data-parallel training, one process a device (torchrun
+    # --nproc_per_node=N): state replicated, batches split by rows,
+    # gradients averaged by an all-reduce. batch_size must divide over the
+    # ranks; n_devices, when set, must equal their number.
     data_parallel: bool = False
     n_devices: int | None = None
+    # Split the TRAIN corpus rows over the ranks instead of placing all of
+    # it on every device: D times the capacity, at one reduce-scatter of
+    # the batch a step (make_sharded_corpus_gather). Requires
+    # data_parallel and device_corpus; the val corpus stays whole.
     shard_corpus: bool = False
     # Run the epoch in segments of this many steps (device_corpus only;
     # 0/1 = one step at a time), each segment's index matrices sent at
@@ -157,11 +172,16 @@ class Trainer:
         test_dataset: NSynthDataset | None = None,
         config: TrainerConfig = TrainerConfig(),
     ):
+        self.mesh = None
         if config.data_parallel:
-            raise NotImplementedError(f"data_parallel {NOT_PORTED}")
-        if config.shard_corpus:
-            raise NotImplementedError(f"shard_corpus {NOT_PORTED}")
-        self.device = resolve_device(config.device)
+            self.mesh = make_mesh(config.n_devices, device=config.device)
+            if config.batch_size % self.mesh.size != 0:
+                raise ValueError(
+                    f"batch_size {config.batch_size} must divide the {self.mesh.size}-device mesh"
+                )
+        if config.shard_corpus and (self.mesh is None or not config.device_corpus):
+            raise ValueError("shard_corpus requires data_parallel and device_corpus")
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(config.device)
         self.model = model.to(self.device)
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
@@ -182,6 +202,18 @@ class Trainer:
         self.state: TrainState | None = None
 
     # ------------------------------------------------------------ setup
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes the run's files: rank 0 of the mesh,
+        or the only process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        """Under data parallelism, waits for every rank (after rank 0's
+        writes, so that all can read them)."""
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group)
 
     @property
     def run_seed(self) -> int:
@@ -215,30 +247,40 @@ class Trainer:
             l0_penalty=cfg.l0_penalty,
         )
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+        dp = dict(mesh=self.mesh, shard_corpus=cfg.shard_corpus)
         self.scan_train_step = None
         if cfg.device_corpus and cfg.scan_steps > 1:
             self.scan_train_step = make_scan_indexed_train_step(
-                self.model, self.optimizer, self._train_corpus(), weights,
-                compute_dtype=dtype, with_grad_norms=cfg.with_grad_norms,
+                self.model, self.optimizer, self._step_corpus(), weights,
+                compute_dtype=dtype, with_grad_norms=cfg.with_grad_norms, **dp,
             )
         if cfg.device_corpus:
             self.train_step = make_indexed_train_step(
-                self.model, self.optimizer, self._train_corpus(), weights,
-                compute_dtype=dtype, with_grad_norms=cfg.with_grad_norms,
+                self.model, self.optimizer, self._step_corpus(), weights,
+                compute_dtype=dtype, with_grad_norms=cfg.with_grad_norms, **dp,
             )
         else:
             self.train_step = make_train_step(
                 self.model, self.optimizer, weights,
-                compute_dtype=dtype, with_grad_norms=cfg.with_grad_norms,
+                compute_dtype=dtype, with_grad_norms=cfg.with_grad_norms, mesh=self.mesh,
             )
         self.eval_step = make_eval_step(self.model, weights)
 
+    def _step_corpus(self):
+        """The corpus the indexed steps take: the host array when it is
+        split over the ranks (never placed whole), else the device copy."""
+        if self.cfg.shard_corpus:
+            return np.asarray(self.train_dataset.waveforms)
+        return self._train_corpus()
+
     def init_state(self) -> TrainState:
         """Fresh weights and optimizer state. Splits the host key: one half
-        seeds the weights, the other becomes the run's key."""
+        seeds the weights, the other becomes the run's key. Under data
+        parallelism the state is broadcast from rank 0."""
         self.rng, init_seed = split_key(self.rng)
         self.model.reset_parameters(init_seed)
-        return create_train_state(self.model, self.optimizer)
+        state = create_train_state(self.model, self.optimizer)
+        return state if self.mesh is None else replicate(state, self.mesh)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """A host array on the trainer's device; to the card through pinned
@@ -289,6 +331,8 @@ class Trainer:
         live_opt.mu, live_opt.nu, live_opt.acc = live(opt["mu"]), live(opt["nu"]), live(opt["acc"])
         live_opt.count, live_opt.mini_step = int(opt["count"]), int(opt["mini_step"])
         st.step = int(tree["step"])
+        if self.mesh is not None:
+            replicate(st, self.mesh)
 
     # ------------------------------------------------------------ loops
 
@@ -297,7 +341,8 @@ class Trainer:
         randomness derives from (run seed, step counter), and the per-step
         losses stay on the device until one copy at the epoch's end. The
         only mid-epoch synchronisations are the log_every metric writes
-        and the cadence checkpoints."""
+        and the cadence checkpoints. Under data parallelism an array batch
+        is cut to this rank's rows here, an index batch in the step."""
         cfg = self.cfg
         temp = anneal_temperature(epoch, cfg.initial_temp, cfg.min_temp, cfg.temp_decay)
         if self.scan_train_step is not None:
@@ -307,12 +352,14 @@ class Trainer:
             self.train_dataset, cfg.batch_size, shuffle=True,
             seed=cfg.seed, epoch=epoch,
         )
+        if not cfg.device_corpus:
+            it = (shard_batch(b, self.mesh) for b in it)
         it = prefetch_to_device(it, size=2, device=self.device)
         loss_refs: list = []
         for iteration, batch in enumerate(it):
             self.state, metrics = self.train_step(self.state, batch, temp, self.run_seed)
             loss_refs.append(metrics["total_loss"])
-            if iteration % cfg.log_every == 0:
+            if iteration % cfg.log_every == 0 and self.writes:
                 self.writer.write(self.state.step, metrics)
                 if cfg.dump_audio and sample_dir is None:
                     self._dump_audio(epoch, iteration, batch)
@@ -345,7 +392,7 @@ class Trainer:
         )
         if not idx_batches:
             return 0.0
-        if cfg.dump_audio and sample_dir is None:
+        if cfg.dump_audio and sample_dir is None and self.writes:
             self._dump_audio(epoch, 0, idx_batches[0])
         k = cfg.scan_steps
         all_idx = self._to_device(np.stack(idx_batches))  # [steps, B, G]
@@ -369,7 +416,7 @@ class Trainer:
         total = sum(len(m["total_loss"]) for m in host)
         for seg_m in host:
             for j in range(len(seg_m["total_loss"])):
-                if it % cfg.log_every == 0:
+                if it % cfg.log_every == 0 and self.writes:
                     self.writer.write(step_after - total + it + 1, pytree.tree_map(lambda v: v[j], seg_m))
                 losses.append(float(seg_m["total_loss"][j]))
                 it += 1
@@ -383,7 +430,10 @@ class Trainer:
         repeating its last clip, and the pad rows are masked out of the
         average: no clip is dropped and none counts twice. Runs under
         ``torch.no_grad``; the per-clip losses come to the host in one copy
-        at the end."""
+        at the end. Under data parallelism each rank evaluates its rows of
+        the padded batch and the ranks' per-clip losses are gathered back
+        into the batch's order, so that every rank sums what one process
+        sums."""
         cfg = self.cfg
         if cfg.device_corpus:
             return self._validate_indexed(dataset or self.val_dataset)
@@ -394,8 +444,8 @@ class Trainer:
                 drop_remainder=False,
             ):
                 padded, real = pad_to_multiple(np.asarray(batch), cfg.batch_size)
-                _, comps = self.eval_step(self._to_device(padded))
-                refs.append((comps["per_sample"], real))
+                _, comps = self.eval_step(self._to_device(shard_batch(padded, self.mesh)))
+                refs.append((gather_rows(comps["per_sample"], self.mesh), real))
         return self._mean_per_clip(refs)
 
     def _validate_indexed(self, ds: NSynthDataset) -> float:
@@ -416,10 +466,10 @@ class Trainer:
                 # Pad rows (repeats of the last index) are masked out of
                 # the average, exactly like the array path.
                 padded, real = pad_to_multiple(np.asarray(batch), cfg.batch_size)
-                idx = self._to_device(padded)
+                idx = self._to_device(shard_batch(padded, self.mesh))
                 x = self._val_corpus_dev.index_select(0, idx[:, 0])[:, None, :]
                 _, comps = self.eval_step(x)
-                refs.append((comps["per_sample"], real))
+                refs.append((gather_rows(comps["per_sample"], self.mesh), real))
         return self._mean_per_clip(refs)
 
     @staticmethod
@@ -467,7 +517,8 @@ class Trainer:
 
             val_loss = self.validate()
             self.metrics.val_losses.append(val_loss)
-            self.metrics.save(self.checkpoint_dir)
+            if self.writes:
+                self.metrics.save(self.checkpoint_dir)
 
             names: tuple[str, ...] = ("latest",)
             if val_loss < best_val:
@@ -495,7 +546,9 @@ class Trainer:
             if ckpt.exists("best"):
                 self._load_tree(ckpt.restore("best"))
             self.metrics.test_loss = self.validate(self.test_dataset)
-            self.metrics.save(self.checkpoint_dir)
+            if self.writes:
+                self.metrics.save(self.checkpoint_dir)
+            self._barrier()
         return self.metrics
 
     # ------------------------------------------------------------ tuner
@@ -512,6 +565,7 @@ class Trainer:
             self.model,
             gradient_clip_val=cfg.gradient_clip_val,
             compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
+            mesh=self.mesh,  # the production run's mesh: grid replicated, batches split
         )
         # device_corpus: send [B, G] indices per step and gather the rows on
         # the device, exactly like the production train loop.
@@ -529,7 +583,7 @@ class Trainer:
             initial_temp=cfg.initial_temp,
             min_temp=cfg.min_temp,
             temp_decay=cfg.temp_decay,
-            corpus=self._train_corpus() if cfg.device_corpus else None,
+            corpus=self._step_corpus() if cfg.device_corpus else None,
             val_corpus=(
                 self.val_dataset.waveforms if cfg.device_corpus else None
             ),
@@ -537,7 +591,8 @@ class Trainer:
         )
         best = result["best_params"]
         self.metrics.best_params = best
-        self.metrics.save(self.checkpoint_dir)
+        if self.writes:
+            self.metrics.save(self.checkpoint_dir)
         # adopt the winning combo's trained params as the starting point
         k = result["best_index"]
         self._build(
@@ -577,18 +632,23 @@ class Trainer:
             for epoch in range(start_epoch, cfg.tuning_epochs):
                 self.train_epoch(epoch, sample_dir=combo_dir)
                 val_loss = self.validate()
-                combo_ckpt.save(
-                    f"epoch_{epoch}", self._state_tree(), extra=self.hyper
-                )
+                self._save_combo(combo_ckpt, f"epoch_{epoch}")
                 if val_loss < best_val:
                     best_val = val_loss
                     best_params = dict(self.hyper)
-                    combo_ckpt.save("best", self._state_tree(), extra=self.hyper)
+                    self._save_combo(combo_ckpt, "best")
                     self.save_checkpoint("best_tuning")
 
         self.metrics.best_params = best_params
-        self.metrics.save(self.checkpoint_dir)
+        if self.writes:
+            self.metrics.save(self.checkpoint_dir)
         return best_params
+
+    def _save_combo(self, ckpt: CheckpointManager, name: str) -> None:
+        """A tuner combo's checkpoint, written by rank 0, then a barrier."""
+        if self.writes:
+            ckpt.save(name, self._state_tree(), extra=self.hyper)
+        self._barrier()
 
     def load_best_parameters(self) -> None:
         """Re-apply the winning combo + its weights."""
@@ -623,7 +683,9 @@ class Trainer:
         background thread copies the clone to the host on a side stream
         that waits for it, and writes. At most one save is in flight: the
         next save, ``finish_checkpoints`` and every restore join it first,
-        re-raising its failure."""
+        re-raising its failure. Under data parallelism only rank 0 writes;
+        every rank meets a barrier after a blocking write and in
+        ``finish_checkpoints``."""
         extra = dict(self.hyper)
         # Architecture stamp: lets consumers rebuild the exact module.
         extra["model"] = self.model.geometry()
@@ -647,8 +709,13 @@ class Trainer:
                 ckpt.save(n, host, extra=extra)
 
         self.finish_checkpoints()
+        if not self.writes:
+            if block:
+                self._barrier()  # rank 0's write below
+            return
         if block:
             _write(self._state_tree(cast_moments=cast_moments))
+            self._barrier()
             return
         snap = self._state_tree(clone=True, cast_moments=cast_moments)
         ready = stream = None
@@ -678,13 +745,15 @@ class Trainer:
         """Join the in-flight async checkpoint save, re-raising its error.
 
         Called before every restore (the newest snapshot must be durable
-        first), before the next save, and at the end of ``train()``."""
+        first), before the next save, and at the end of ``train()``. Under
+        data parallelism every rank then waits for the others."""
         t, self._ckpt_thread = self._ckpt_thread, None
         if t is not None:
             t.join()
             err, self._ckpt_error = self._ckpt_error, None
             if err is not None:
                 raise err
+        self._barrier()
 
     def load_checkpoint(self, name: str, directory: Path | None = None):
         """Restore a checkpoint into the live model and optimizer state (its

@@ -28,8 +28,12 @@ batch.
 - ``scan_grid_step`` is a Python loop of grid steps whose losses stack to
   [k, K]. The noise of a step derives from (seed, combo, step counter), so
   the scanned and the per-step tune are equal bit for bit.
-- ``mesh`` belongs to data-parallel tuning, which is still to come
-  (ROADMAP.md, Queue 1 item 6): it raises ``NotImplementedError``.
+- ``mesh`` (a ``parallel.DataMesh``) tunes data-parallel, as the
+  production step runs: the grid state is broadcast from rank 0, each rank
+  takes its rows of every batch, every combo's noise is drawn at the global
+  batch's shape and cut to the rank's rows, the stacked gradients and
+  losses are averaged over the ranks by one all-reduce before the update,
+  and ``grid_eval``'s losses by another. Every rank advances all K combos.
 
 The sequential, per-combo-resumable tuner remains in
 ``Trainer.tune_hyperparameters``.
@@ -48,7 +52,8 @@ from torch import nn
 
 from ..models.autoencoder import AudioAutoencoder
 from ..models.encoder import info_nce_loss, rank_diversity_entropy, vertex_count_penalty
-from ..ops.samplers import uniform_noise
+from ..ops.samplers import rand_rows, uniform_noise
+from ..parallel import mean_over_ranks, replicate, row_shard, shard_batch
 from .losses import LossWeights, autoencoder_loss
 from .train_step import (
     OptState,
@@ -164,13 +169,8 @@ class VmappedGridTuner:
         mesh=None,
     ):
         """The tuner works on its own copy of ``model`` (the caller's
-        parameters are neither used nor changed); ``mesh`` raises
-        ``NotImplementedError`` (data-parallel tuning is still to come)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh belongs to data-parallel tuning, which the port does not have yet "
-                "(ROADMAP.md, Queue 1 item 6: DistributedDataParallel)"
-            )
+        parameters are neither used nor changed). ``mesh``: the data mesh
+        to tune over (every batch this rank's rows, the grid replicated)."""
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, not {compute_dtype}")
         model = copy.deepcopy(model)
@@ -183,6 +183,7 @@ class VmappedGridTuner:
         # plain samplers take each combo's uniforms as a vmapped input.)
         model.encoder.use_fused_sampler = False
         self.model = model
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.base_weights = weights
         self.max_norm = gradient_clip_val
@@ -213,7 +214,8 @@ class VmappedGridTuner:
             mu={n: torch.zeros_like(p) for n, p in params.items()},
             nu={n: torch.zeros_like(p) for n, p in params.items()},
         )
-        return GridState(params, opt_state, enc, dec, cpx)
+        state = GridState(params, opt_state, enc, dec, cpx)
+        return state if self.mesh is None else replicate(state, self.mesh)
 
     # ------------------------------------------------------------ noise
 
@@ -224,19 +226,21 @@ class VmappedGridTuner:
         dropout is off) and, for a ``hard`` model, the four per-rank
         Bernoulli draws ("hard"). Combo i draws them from
         ``step_generators(step seed of i, step)`` in the order the train
-        step's single-combo path draws from the same generators."""
+        step's single-combo path draws from the same generators. With a
+        mesh, ``batch_shape`` is this rank's and each draw is its rows of
+        the global batch's draw."""
         b, g = batch_shape[:2]
         enc = self.model.encoder
+        shard = row_shard(self.mesh)
         noise, drop0, drop1, hard = [], [], [], []
         for _, step_seed in combo_seeds(seed, k):
             sample_gen, dropout_gen = step_generators(step_seed, step, self.device)
             if enc.dropout > 0.0:
                 for drop, width in ((drop0, enc.mlp0.out_features), (drop1, enc.mlp1.out_features)):
-                    drop.append(torch.rand((b * g, width), generator=dropout_gen, device=dropout_gen.device))
-            noise.append(uniform_noise((b, enc.total_simplices), sample_gen, self.device))
+                    drop.append(rand_rows((b * g, width), dropout_gen, shard))
+            noise.append(uniform_noise((b, enc.total_simplices), sample_gen, self.device, shard))
             if enc.hard:
-                hard.append([torch.rand((b, n), generator=dropout_gen, device=dropout_gen.device)
-                             for n in enc.sizes])
+                hard.append([rand_rows((b, n), dropout_gen, shard) for n in enc.sizes])
         out = {"noise": torch.stack(noise)}
         if drop0:
             out["dropout"] = (torch.stack(drop0), torch.stack(drop1))
@@ -250,7 +254,9 @@ class VmappedGridTuner:
         """The grid's per-combo train losses [K] and their gradients
         ({name: [K, ...]}, fp32), without the update. ``noise`` (a dict as
         ``draw_noise`` returns it; "dropout" and "hard" only where the model
-        draws them) replaces the combos' draws."""
+        draws them) replaces the combos' draws. With a mesh, ``batch`` and
+        ``noise`` are this rank's rows, and the losses and gradients come
+        back averaged over the ranks."""
         batch = torch.as_tensor(batch, device=self.device)
         if noise is None:
             noise = self.draw_noise(batch.shape, seed, state.step, state.encoder_lr.shape[0])
@@ -273,7 +279,11 @@ class VmappedGridTuner:
             n: torch.zeros_like(p) if gr is None else gr.to(torch.float32)
             for (n, p), gr in zip(leaves.items(), grads)
         }
-        return losses.detach(), grads
+        losses = losses.detach()
+        if self.mesh is not None:
+            *reduced, losses = mean_over_ranks([*grads.values(), losses], self.mesh)
+            grads = dict(zip(grads, reduced))
+        return losses, grads
 
     def apply_updates(self, state: GridState, grads: dict) -> None:
         """clip_by_global_norm (each combo over its own leaves) ->
@@ -302,16 +312,19 @@ class VmappedGridTuner:
 
     def scan_grid_step(self, state: GridState, idx_seg, temperature, seed: int, corpus):
         """[k, B, G] index segment -> k grid steps, each gathering its batch
-        from the device ``corpus`` [N, T]; issued back to back with no
-        synchronisation. Returns (state, losses [k, K])."""
+        (with a mesh, this rank's rows) from the device ``corpus`` [N, T];
+        issued back to back with no synchronisation. Returns (state, losses
+        [k, K])."""
         losses = []
         for idx in idx_seg:
-            state, loss = self.grid_step(state, gather_batch(corpus, idx), temperature, seed)
+            state, loss = self.grid_step(state, gather_batch(corpus, shard_batch(idx, self.mesh)), temperature, seed)
             losses.append(loss)
         return state, torch.stack(losses)
 
     def grid_eval(self, params: dict, cpx: torch.Tensor, batch) -> torch.Tensor:
-        """Every combo's eval loss on ``batch`` [B, 1, T] -> [K]."""
+        """Every combo's eval loss on ``batch`` [B, 1, T] -> [K]; with a
+        mesh, ``batch`` is this rank's rows and the losses are averaged over
+        the ranks."""
         batch = torch.as_tensor(batch, device=self.device)
         evaluate = self._eval
 
@@ -319,7 +332,8 @@ class VmappedGridTuner:
             return torch.func.functional_call(evaluate, {f"model.{n}": v for n, v in p.items()}, (batch, c))
 
         with torch.no_grad():
-            return torch.func.vmap(combo, randomness="error")(params, cpx)
+            losses = torch.func.vmap(combo, randomness="error")(params, cpx)
+        return losses if self.mesh is None else mean_over_ranks([losses], self.mesh)[0]
 
     # ------------------------------------------------------------ tune
 
@@ -344,6 +358,7 @@ class VmappedGridTuner:
         The sampler temperature anneals per epoch with the production
         run's schedule. With ``corpus`` the waveforms are placed on the
         device once and each step gathers its [B, G] index matrix there.
+        With a mesh every rank takes the same batches and keeps its rows.
         Train losses stay on the device and come to the host in one copy
         at the end. With no validation batch, ``val_losses`` stays zeros.
         """
@@ -367,7 +382,7 @@ class VmappedGridTuner:
                     train_curve.append(losses)  # [k, K] on the device
                 continue
             for batch in train_batches(epoch):
-                batch = torch.as_tensor(np.asarray(batch), device=self.device)
+                batch = torch.as_tensor(shard_batch(np.asarray(batch), self.mesh), device=self.device)
                 if corpus is not None:
                     batch = gather_batch(corpus, batch)
                 if state is None:
@@ -382,7 +397,7 @@ class VmappedGridTuner:
         val_losses = np.zeros(len(combos))
         n_val = 0
         for batch in val_batches():
-            batch = torch.as_tensor(np.asarray(batch), device=self.device)
+            batch = torch.as_tensor(shard_batch(np.asarray(batch), self.mesh), device=self.device)
             if corpus is not None:
                 batch = vc.index_select(0, batch[:, 0])[:, None, :]
             val_losses = val_losses + self.grid_eval(
