@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's codec, codec CLI, train step, trainer, vmapped
-grid tuner and data parallelism on one CUDA card and hold its kernels
-against their plain versions.
+grid tuner, data parallelism and examples on one CUDA card and hold its
+kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -103,6 +103,11 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             the unfused step's repeatability, cuDNN deterministic and not.
 15. train_parity_packed  train_parity for the packed model, with uniforms
             whose packed sets cannot change between card and CPU.
+   packed_repeat  two identical packed train steps (fp32, B=16 x G=3,
+            cuDNN deterministic) on two copies of one seeded model: the loss,
+            every gradient leaf and the parameters after 4 steps equal bit
+            for bit (the packed gathers' backwards sum in a fixed order);
+            the step median and one profiled step's device ms.
 16. serve_packed  the packed codec: 3 timed requests of 8 clips, 5,181 wire
             bytes a clip, the latent bit for bit through the wire, row 1
             once a decode, the waveform against the CPU's.
@@ -142,7 +147,8 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 21. trainer_resume  Trainer.train() for 3 epochs against 2 epochs, a new
             model and trainer, and train(resume=True) to 3, on 28 + 4
             clips, cuDNN deterministic: losses, best epoch, every parameter
-            and moment equal bit for bit.
+            and moment equal bit for bit; then the same for the n=32 packed
+            model at the repo's best geometry (trainer_resume_packed).
 22. epoch_b128  BASELINE config 4: the precompute of 2,048 synthetic clips
             (tile 64), then one warm-up step and Trainer.train_epoch at
             B = 128 x G = 6, bf16, on the device corpus (16 steps): clips/s
@@ -167,6 +173,17 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 25. tuner_parity  one K = 2 grid step (fp32, B=2, G=3, cuDNN
             deterministic) against two single-combo steps of the port on
             the same weights and uniforms, at train_parity's bounds.
+   flat_adam  make_optimizer(flat_groups=True) against the per-leaf
+            optimizer on the flagship's parameters, the same gradients for
+            3 updates (accumulation 1 and 4, one update clipped):
+            parameters and moments bit for bit; each applied update's
+            launches and device ms (torch.profiler), both layouts.
+   examples  examples/torch_train_synthetic.py (32 clips, 1 epoch, its
+            bf16 B = 16 settings) and examples/torch_codec_roundtrip.py
+            (fresh n=20 weights: 775 wire bytes; --packed from an n=32
+            checkpoint: 5,181) through their main, in-process: finite
+            losses and waveforms, rows 1-3 once a step, row 1 once a
+            decode; counters zeroed just before each run.
 26. dp_philox  rows 3-5 at [16, 6195], fp32 and bf16, drawing a
             data-parallel rank's 8 rows with first = its first row x 6,195
             (row 8, and row 1: an odd start): the rows of the first = 0
@@ -192,8 +209,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             recorded no device activity at first and were taken again.
 30. kernels  one line per kernel: route, source, launches (rows 1 and 2:
             trainer_main's first run + the codec CLI's runs + the tuner's
-            run + dp1's data-parallel run + dp2's two ranks; row 3 and 3's
-            backward: trainer_main's first run + dp1's + dp2's; the others
+            run + dp1's data-parallel run + dp2's two ranks + the examples;
+            row 3 and 3's backward: trainer_main's first run + dp1's +
+            dp2's + the train example's; the others
             their train step; combine_diag's ladder for rows 8-10), error,
             times (at its train step's shape; the ladder's for rows 8-10).
             The samplers' backward kernels stand in the line under the JAX
@@ -205,9 +223,11 @@ check exits non-zero before the last line. Without a card it exits 2.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -390,6 +410,11 @@ PACKED_STEPS = 5
 PACKED_KEYS = 496 + 512 + 256
 PACKED_WIRE_BYTES = 5181
 PACKED_FUSED_RANK_LAYERS = 18
+# packed_repeat: timed train steps after the warm-up, per model; the
+# packed step's earlier medians and device ms (train_packed, cuDNN
+# default, H100 80GB HBM3 at 700 W), printed beside it.
+PACKED_REPEAT_STEPS = 3
+EARLIER_PACKED_STEP = dict(step_ms_median=[168.6, 219.5], device_ms=[45.2, 45.9])
 # BASELINE config 2 (benchmarks/run_all.py:125-150, BASELINE.md:43): the
 # flagship width with max_rank=1 (vertices and edges: 190 attention keys),
 # batch 8, the eval forward plus autoencoder_loss, BASELINE2_CALLS times.
@@ -406,6 +431,11 @@ JK_STEPS = 3
 # JAX package's tile of 64 (136 tile pairs, 523,776 distinct pairs) and its
 # five scales. The dataset: the flagship's group, anchor + positive + one
 # negative (G = 3), at epoch 1 of the curriculum.
+# flat_adam: applied updates per accumulation setting.
+FLAT_ADAM_UPDATES = 3
+# examples: torch_train_synthetic's clips (B = 16: 2 steps), the n=20 wire.
+EXAMPLE_CLIPS = 32
+EXAMPLE_WIRE_BYTES = 775
 DATA_N = 1024
 DATA_TILE = 64
 DATA_STEPS = 3
@@ -1195,10 +1225,9 @@ def phase_train_trace(torch, state, step, batch, what="one flagship train step (
     trace_call(torch, lambda: step(state, batch, TEMPERATURE, SEED), what)
 
 
-def trace_call(torch, fn, what: str) -> dict:
-    """Where one call of ``fn`` spends device time (torch.profiler): device
-    busy share, top ops and kernels. Recorded, not checked; returns the
-    wall, device time, launches and busy share."""
+def profile_call(torch, fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: (the wall, device time,
+    launches and busy share; the aten ops and the kernels by device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1222,6 +1251,14 @@ def trace_call(torch, fn, what: str) -> dict:
         wall_ms_profiled=wall_ms, device_ms=device_ms, kernel_launches=sum(e.count for e in kernels),
         device_busy_share_profiled=device_ms / wall_ms,
     )
+    return fields, ops, kernels
+
+
+def trace_call(torch, fn, what: str) -> dict:
+    """Where one call of ``fn`` spends device time (torch.profiler): device
+    busy share, top ops and kernels. Recorded, not checked; returns the
+    wall, device time, launches and busy share."""
+    fields, ops, kernels = profile_call(torch, fn)
     emit(
         "trace", what=f"{what} under torch.profiler", **fields,
         top_ops=[(e.key, e.device_time_total / 1e3, e.count) for e in ops[:15]],
@@ -2823,15 +2860,25 @@ def phase_trainer_main(torch, port, counters) -> dict:
 def phase_trainer_resume(torch, port, counters) -> None:
     """Trainer.train() for 3 epochs uninterrupted against 2 epochs, a
     fresh model and trainer (as a new process would build them), and
-    train(resume=True) to 3, cuDNN deterministic: every loss, the best
+    train(resume=True) to 3, cuDNN deterministic, for the flagship and for
+    the n=32 packed model at the repo's best geometry: every loss, the best
     epoch, every parameter and moment equal bit for bit."""
     from topo_audio_autoencoder_torch import data
-    from topo_audio_autoencoder_torch.training import Trainer, TrainerConfig
 
     corpus = data.synth_corpus(RESUME_TRAIN + RESUME_VAL, NUM_SAMPLES, seed=SEED + 40)
     dists = data.compute_distances(corpus[:RESUME_TRAIN], tile=DATA_TILE)
     train = data.NSynthDataset(corpus[:RESUME_TRAIN], dists["neighbors"], train=True, seed=SEED)
     val = data.NSynthDataset(corpus[RESUME_TRAIN:])
+    for phase, config, options in (("trainer_resume", FLAGSHIP, {}),
+                                   ("trainer_resume_packed", PACKED, PACKED_OPTIONS)):
+        resume_runs(torch, port, phase, train, val, config, options)
+
+
+def resume_runs(torch, port, phase, train, val, config, options) -> None:
+    """trainer_resume's three runs of one model on the same clips, and
+    their checks."""
+    from topo_audio_autoencoder_torch.training import Trainer, TrainerConfig
+
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     runs = {}
@@ -2841,7 +2888,7 @@ def phase_trainer_resume(torch, port, counters) -> None:
                                                     ("killed", RESUME_EPOCHS - 1, "kill", False),
                                                     ("resumed", RESUME_EPOCHS, "kill", True)):
                 train.set_epoch(0)
-                model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 41,
+                model = port.AudioAutoencoder.create(**config, **options, num_samples=NUM_SAMPLES, seed=SEED + 41,
                                                      device=DEVICE)
                 trainer = Trainer(model, train, val,
                                   config=TrainerConfig(checkpoint_dir=str(Path(tmp) / directory),
@@ -2857,7 +2904,7 @@ def phase_trainer_resume(torch, port, counters) -> None:
                 if name == "killed":
                     saved = port.CheckpointManager(Path(tmp) / "kill").restore("latest")["opt_state"]
                     check(saved["mini_step"] == 2 * (RESUME_TRAIN // 4) % 4 and len(saved["acc"]) > 0,
-                          f"trainer_resume: the killed run's accumulator {saved['mini_step']}")
+                          f"{phase}: the killed run's accumulator {saved['mini_step']}")
                 del model, trainer
                 torch.cuda.empty_cache()
     finally:
@@ -2867,20 +2914,21 @@ def phase_trainer_resume(torch, port, counters) -> None:
     differ = sorted(n for n in full["params"] if not torch.equal(full["params"][n], res["params"][n]))
     moments_differ = sorted(n for n in full["moments"]
                             if not all(torch.equal(a, b) for a, b in zip(full["moments"][n], res["moments"][n])))
-    emit("trainer_resume", config=FLAGSHIP, clips=dict(train=RESUME_TRAIN, val=RESUME_VAL), epochs=RESUME_EPOCHS,
-         cudnn_deterministic=True, seconds={k: r["s"] for k, r in runs.items()},
+    emit(phase, config=config, options=options, clips=dict(train=RESUME_TRAIN, val=RESUME_VAL),
+         epochs=RESUME_EPOCHS, cudnn_deterministic=True, seconds={k: r["s"] for k, r in runs.items()},
          val_losses={k: r["metrics"].val_losses for k, r in runs.items()},
          train_losses={k: r["metrics"].train_losses for k, r in runs.items()},
          best_epoch={k: r["metrics"].best_epoch for k, r in runs.items()},
          counters={k: r["counters"] for k, r in runs.items()}, negative_offset=full["offset"],
-         params_differ=differ[:10], n_params_differ=len(differ), moments_differ=moments_differ[:10],
+         n_params=len(full["params"]), params_differ=differ[:10], n_params_differ=len(differ),
+         moments_differ=moments_differ[:10],
          max_param_abs_diff=max((float((full["params"][n] - res["params"][n]).abs().max()) for n in differ),
                                 default=0.0))
-    check(all(math.isfinite(v) for v in fm.iteration_losses + fm.val_losses), "trainer_resume: non-finite loss")
+    check(all(math.isfinite(v) for v in fm.iteration_losses + fm.val_losses), f"{phase}: non-finite loss")
     check(rm.val_losses == fm.val_losses and rm.train_losses == fm.train_losses
-          and rm.iteration_losses == fm.iteration_losses, "trainer_resume: the resumed losses differ")
-    check(rm.best_epoch == fm.best_epoch and res["counters"] == full["counters"], "trainer_resume: best epoch")
-    check(not differ and not moments_differ, f"trainer_resume: {len(differ)} parameters differ, "
+          and rm.iteration_losses == fm.iteration_losses, f"{phase}: the resumed losses differ")
+    check(rm.best_epoch == fm.best_epoch and res["counters"] == full["counters"], f"{phase}: best epoch")
+    check(not differ and not moments_differ, f"{phase}: {len(differ)} parameters differ, "
                                              f"{len(moments_differ)} moments differ")
 
 
@@ -3672,6 +3720,186 @@ def phase_dp2(torch, port, training, counters) -> dict:
     return {n: sum(o["launches"][n] for o in outs) for n in outs[0]["launches"]}
 
 
+def phase_packed_repeat(torch, port, training, counters) -> None:
+    """Two identical n=32 packed train steps (fp32, B=16 x G=3, cuDNN
+    deterministic): two copies of one seeded model each take the step's forward
+    and backward on the same batch and then PACKED_REPEAT_STEPS train steps
+    on the same batches; the loss, every gradient leaf, every step's loss
+    components and the updated parameters must be equal bit for bit. The
+    step median (host clock) and one profiled step's device ms, beside
+    the packed step's earlier range on an H100 80GB HBM3 at 700 W, cuDNN
+    default (EARLIER_PACKED_STEP)."""
+    batches = [torch.from_numpy(make_clips(TRAIN_B * TRAIN_G, SEED + 700 + i)
+                                .reshape(TRAIN_B, TRAIN_G, 1, NUM_SAMPLES)).to(DEVICE)
+               for i in range(PACKED_REPEAT_STEPS + 1)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    model = port.AudioAutoencoder.create(**PACKED, **PACKED_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED + 60,
+                                         device=DEVICE)
+    models = [model, copy.deepcopy(model)]
+    del model
+    try:
+        while models:
+            model = models.pop(0)
+            total, _, grads = training.make_loss_and_grads(model)(batches[0], TEMPERATURE, SEED, 0)
+            grads = {n: g.cpu() for n, g in grads.items()}
+            opt = port.make_optimizer(accumulate_grad_batches=1)
+            state, step = port.create_train_state(model, opt), port.make_train_step(model, opt)
+            state, times, components, launches = timed_steps(torch, step, state, batches, counters)
+            runs.append(dict(total=float(total), grads=grads, times=times, components=components,
+                             launches=launches,
+                             params={n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}))
+            if len(runs) == 2:
+                profiled = trace_call(torch, lambda: step(state, batches[0], TEMPERATURE, SEED),
+                                      "one n=32 packed train step (fp32, B=16, G=3, cuDNN deterministic)")
+            del model, opt, state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs
+    grads_differ = sorted(n for n in a["grads"] if not torch.equal(a["grads"][n], b["grads"][n]))
+    params_differ = sorted(n for n in a["params"] if not torch.equal(a["params"][n], b["params"][n]))
+    flat = [torch.cat([r["grads"][n].reshape(-1) for n in a["grads"]]) for r in runs]
+    times = a["times"][1:] + b["times"][1:]
+    emit("packed_repeat", config=PACKED, options=PACKED_OPTIONS, anchors=TRAIN_B, group=TRAIN_G, dtype="float32",
+         cudnn_deterministic=True, steps=len(batches), losses=[r["total"] for r in runs],
+         grad_leaves=len(a["grads"]), grads_differ=grads_differ[:10], n_grads_differ=len(grads_differ),
+         grad_rel_l2=float((flat[0] - flat[1]).norm() / flat[0].norm()),
+         params_differ=params_differ[:10], n_params_differ=len(params_differ),
+         step_ms=[r["times"] for r in runs], step_ms_median=statistics.median(times),
+         step_ms_spread=[min(times), max(times)], device_ms=profiled["device_ms"],
+         kernel_launches=profiled["kernel_launches"], launches=a["launches"],
+         earlier_train_packed=EARLIER_PACKED_STEP)
+    check(a["total"] == b["total"] and a["components"] == b["components"], "packed_repeat: the losses differ")
+    check(not grads_differ, f"packed_repeat: {len(grads_differ)} gradient leaves differ: {grads_differ[:5]}")
+    check(not params_differ, f"packed_repeat: {len(params_differ)} parameters differ after the steps")
+    for name, per_step in {"masked_attention_fwd": 1, "masked_attention_bwd": 1, **GUMBEL_EXPECT}.items():
+        check(a["launches"][name] == per_step * len(batches),
+              f"packed_repeat: {name} launched {a['launches'][name]} times in {len(batches)} steps")
+
+
+def phase_flat_adam(torch, port) -> None:
+    """make_optimizer(flat_groups=True) against the per-leaf optimizer on
+    the flagship's parameters: the same gradients (seeded normals on the
+    card; one update's micro-steps 1e5 times larger, so that its clip
+    fires) through both for FLAT_ADAM_UPDATES updates, with accumulation 1
+    and 4. Parameters and moments equal bit for bit; each applied update's
+    kernel launches and device ms (torch.profiler) for both layouts,
+    recorded, not claimed."""
+    record = {}
+    model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 70, device=DEVICE)
+    models = [model, copy.deepcopy(model)]  # equal bit for bit after each accumulation setting, or the run fails
+    for accumulate in (1, 4):
+        opts = [port.make_optimizer(accumulate_grad_batches=accumulate, flat_groups=flat) for flat in (False, True)]
+        states = [opt.init(m) for opt, m in zip(opts, models)]
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 71)
+        per_update = {"per_leaf": [], "flat": []}
+        norms = []
+        for i in range(FLAT_ADAM_UPDATES * accumulate):
+            scale = 1e2 if i // accumulate == 1 else 1e-3
+            grads = {n: torch.randn(p.shape, generator=gen, device=DEVICE) * scale
+                     for n, p in models[0].named_parameters()}
+            norms.append(float(torch.sqrt(sum((g * g).sum() for g in grads.values()))))
+            for layout, opt, state, model in zip(per_update, opts, states, models):
+                given = {n: g.clone() for n, g in grads.items()}
+                if i % accumulate == accumulate - 1:
+                    fields, _, _ = profile_call(torch, lambda: opt.update(given, state, model))
+                    per_update[layout].append({k: fields[k] for k in ("device_ms", "kernel_launches",
+                                                                      "wall_ms_profiled")})
+                else:
+                    opt.update(given, state, model)
+        torch.cuda.synchronize()
+        per_leaf, flat = states
+        params_differ = [n for (n, p), q in zip(models[0].named_parameters(), models[1].parameters())
+                         if not torch.equal(p, q)]
+        groups = opts[1].groups(dict(models[0].named_parameters()))
+        moments_differ = [(g, what) for g, names in groups.items() for what in ("mu", "nu")
+                          if not torch.equal(getattr(flat, what)[g],
+                                             torch.cat([getattr(per_leaf, what)[n].reshape(-1) for n in names]))]
+        record[accumulate] = dict(updates=per_update, grad_norms=norms, params_differ=params_differ[:10],
+                                  moments_differ=moments_differ, count=(per_leaf.count, flat.count))
+        check(not params_differ and not moments_differ,
+              f"flat_adam (accumulation {accumulate}): parameters {params_differ[:5]} or moments "
+              f"{moments_differ} differ")
+        check(per_leaf.count == flat.count == FLAT_ADAM_UPDATES and max(norms) > opts[0].max_norm > min(norms),
+              f"flat_adam: counts {per_leaf.count}, {flat.count}; norms {min(norms)}-{max(norms)}")
+        del opts, states
+    emit("flat_adam", config=FLAGSHIP, leaves=len(groups["encoder"]) + len(groups["decoder"]),
+         groups={g: len(n) for g, n in groups.items()}, updates=FLAT_ADAM_UPDATES,
+         runs={f"accumulate_{k}": v for k, v in record.items()})
+
+
+def phase_examples(torch, port, counters) -> dict:
+    """Both examples in-process on the card through their ``main``:
+    examples/torch_train_synthetic.py on EXAMPLE_CLIPS clips for 1 epoch
+    (its settings: bf16, B = 16, accumulation 1, the device corpus; rows
+    1-3 once a step, row 1 also once an eval forward), then
+    examples/torch_codec_roundtrip.py with fresh weights (n=20: 775 wire
+    bytes) and with --packed from an n=32 packed Trainer-layout checkpoint
+    (5,181 bytes): finite losses and waveforms; counters zeroed just
+    before each run and read just after. Returns the runs' launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import torch_codec_roundtrip
+    import torch_train_synthetic
+
+    total = {name: 0 for name in counters}
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = Path.cwd()
+        for c in counters.values():
+            c.launches = 0  # just before the main path
+        t0 = time.perf_counter()
+        with TrainerProbe(torch) as probe:
+            try:
+                os.chdir(tmp)
+                metrics = torch_train_synthetic.main([str(EXAMPLE_CLIPS), "1"])
+            finally:
+                os.chdir(cwd)
+        wall_s = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}  # just after
+        ckpt = Path(tmp) / "checkpoints_synthetic_torch"
+        dumps = len(list(ckpt.glob("samples/*/metadata_*.json")))
+        steps = len(probe.steps)
+        check(steps == EXAMPLE_CLIPS // 16 and len(metrics.train_losses) == 1
+              and all(math.isfinite(v) for v in metrics.iteration_losses + metrics.val_losses)
+              and (ckpt / "best" / "state.pt").exists(),
+              f"examples: torch_train_synthetic: {steps} steps, losses {metrics.train_losses}, {metrics.val_losses}")
+        trainer_launch_check("examples: torch_train_synthetic", launches, steps,
+                             len(probe.validates) * -(-max(8, EXAMPLE_CLIPS // 8) // 16) + dumps)
+        results["torch_train_synthetic"] = dict(
+            clips=EXAMPLE_CLIPS, epochs=1, wall_s=wall_s, steps=steps, train_losses=metrics.train_losses,
+            val_losses=metrics.val_losses, best_val_loss=metrics.best_val_loss, launches=launches,
+            **probe.summary())
+        for name in total:
+            total[name] += launches[name]
+
+        n32 = Path(tmp) / "n32"
+        model = port.AudioAutoencoder.create(**PACKED, **PACKED_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED + 80,
+                                             device=DEVICE)
+        port.CheckpointManager(n32).save("best", {"params": model.state_dict()}, extra={"model": model.geometry()})
+        del model
+        for what, argv, wire in (("fresh", [], EXAMPLE_WIRE_BYTES), ("packed", [str(n32), "--packed"],
+                                                                      PACKED_WIRE_BYTES)):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = torch_codec_roundtrip.main(argv)
+            torch.cuda.synchronize()
+            launches = {name: c.launches for name, c in counters.items()}
+            check(out["wire_bytes"] == wire and out["finite"] and tuple(out["waveform"].shape) == (1, 1, NUM_SAMPLES),
+                  f"examples: torch_codec_roundtrip {what}: {out['wire_bytes']} bytes, finite {out['finite']}")
+            check(launches["masked_attention_fwd"] == 1 and sum(launches.values()) == 1,
+                  f"examples: torch_codec_roundtrip {what}: launches {launches}")
+            results[f"torch_codec_roundtrip_{what}"] = dict(
+                wall_s=time.perf_counter() - t0, bits=out["bits"], wire_bytes=out["wire_bytes"],
+                spectral_distance=out["spectral_distance"], launches=launches)
+            for name in total:
+                total[name] += launches[name]
+    emit("examples", **results)
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, result) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3788,6 +4016,9 @@ def main() -> int:
         phase_train_packed_fused(torch, port, training, counters)
         torch.cuda.empty_cache()
         phase_train_parity(torch, port, training, "train_parity_packed", PACKED_OPTIONS, config=PACKED)
+        torch.cuda.empty_cache()
+        phase_packed_repeat(torch, port, training, counters)
+        torch.cuda.empty_cache()
         phase_serve_packed(torch, port, counters)
         emit("packed_memberships", after="serve_packed", built=packed_memberships())
         torch.cuda.empty_cache()
@@ -3808,6 +4039,9 @@ def main() -> int:
         tuner_launches = phase_tuner(torch, port, counters)
         phase_tuner_parity(torch, port, training, counters)
         torch.cuda.empty_cache()
+        phase_flat_adam(torch, port)
+        example_launches = phase_examples(torch, port, counters)
+        torch.cuda.empty_cache()
         phase_dp_philox(torch, fused, hc, n_simplices)
         dp1_launches = phase_dp1(torch, port, counters)
         dp2_launches = phase_dp2(torch, port, training, counters)
@@ -3817,9 +4051,11 @@ def main() -> int:
     emit("profiler", **PROFILES)
     csrc = "topo_audio_autoencoder_torch/csrc/"
     # The main paths, each counted from zero: trainer_main, the codec CLI
-    # and the vmapped tuner (rows 1 and 2), and data parallelism's Trainer
-    # over NCCL (dp1) and the two gloo ranks' steps (dp2) (rows 1-3).
+    # and the vmapped tuner (rows 1 and 2), data parallelism's Trainer
+    # over NCCL (dp1) and the two gloo ranks' steps (dp2), and the two
+    # examples (rows 1-3).
     path_launches = {name: trainer_launches[name] + dp1_launches[name] + dp2_launches[name]
+                     + example_launches[name]
                      for name in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT)}
     for name in ("masked_attention_fwd", "masked_attention_bwd"):
         path_launches[name] += cli_launches[name] + tuner_launches[name]

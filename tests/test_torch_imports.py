@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX
-package, and chip_smoke.py refuses to run without a card."""
+"""The PyTorch port, its examples, its tools and chip_smoke.py import
+neither JAX nor the JAX package, and chip_smoke.py refuses to run without
+a card."""
 
 import ast
 import os
@@ -56,7 +57,9 @@ def _imported_roots(path: Path) -> set:
 
 
 def test_no_port_source_names_jax():
-    for path in [ROOT / "chip_smoke.py", *PORT.rglob("*.py")]:
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == ["torch_codec_roundtrip.py", "torch_train_synthetic.py"]
+    for path in [ROOT / "chip_smoke.py", *PORT.rglob("*.py"), *examples, *(ROOT / "tools").glob("*.py")]:
         assert not _imported_roots(path) & set(FORBIDDEN), path
 
 

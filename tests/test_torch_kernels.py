@@ -739,3 +739,30 @@ def test_ablation_kernels_match_plain(cuda, dtype, m, variant):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     _assert_rel(y, plain(*args), COMBINE_RTOL[dtype][0], variant)
+
+
+def test_two_packed_steps_repeat_bit_for_bit(cuda):
+    """The n=32 packed model (ranks 2-3 packed to 512 and 256 rows), two
+    models from one seed, one step's loss and gradient each on the same
+    batch, cuDNN deterministic: equal bit for bit (the packed gathers'
+    backwards sum in a fixed order; autograd's own added with atomics)."""
+    from topo_audio_autoencoder_torch.models import AudioAutoencoder
+    from topo_audio_autoencoder_torch.training import make_loss_and_grads
+
+    t, b, g = 16384, 4, 3
+    rng = np.random.default_rng(6)
+    batch = torch.from_numpy((0.3 * rng.standard_normal((b, g, 1, t))).astype(np.float32)).to(cuda)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            model = AudioAutoencoder.create(num_vertices=32, max_active_vertices=32, pack_capacities=(0, 0, 512, 256),
+                                            num_samples=t, seed=5, device=cuda)
+            total, _, grads = make_loss_and_grads(model)(batch, 1.0, 3, 0)
+            runs.append((total, grads))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (ta, ga), (tb, gb) = runs
+    assert torch.equal(ta, tb)
+    assert [n for n in ga if not torch.equal(ga[n], gb[n])] == []

@@ -19,7 +19,9 @@ from _torch_parity import WAVE_SEED, flax_params, waveforms
 from topo_audio_autoencoder_torch import topology as pt
 from topo_audio_autoencoder_torch.convert import state_dict_from_flax
 from topo_audio_autoencoder_torch.models import AudioAutoencoder as TorchAutoencoder
+from topo_audio_autoencoder_torch.models.encoder import _RowGather
 from topo_audio_autoencoder_torch.topology.builder import built_memberships
+from topo_audio_autoencoder_torch.topology.packed import _FaceSum, face_sum
 from topo_audio_autoencoder_tpu import topology as jt
 from topo_audio_autoencoder_tpu.models import AudioAutoencoder as JaxAutoencoder
 from topo_audio_autoencoder_tpu.topology.packed import build_packed_operators as jax_build_packed
@@ -291,3 +293,85 @@ def test_packed_geometry_and_parameters_match_jax(models):
     assert m["packed"].geometry() == m["jm"].geometry()
     assert m["packed"].geometry()["pack_capacities"] == list(CAPS)
     assert m["packed"].num_params() == m["jm"].num_params(m["params"]) == m["dense"].num_params()
+
+
+# The packed gathers' fixed-order backwards (``_FaceSum``, ``_RowGather``)
+# against autograd's own backward of the same gathers: sums of the same
+# terms in another order, so fp32 round-off apart.
+GATHER_BWD_RTOL = 1e-6
+
+
+def _old_face_gather(ops, rank, x):
+    """The face gather as autograd differentiates it (take_along_dim + sum)."""
+    return face_sum(x, ops.faces[rank], ops.is_packed(rank - 1))
+
+
+def _rel(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_packed_face_gather_forward_bit_for_bit_and_its_fixed_order_backward(setup, rank):
+    """``_gather_faces`` equals the gather it replaced bit for bit; its
+    backward, the product with the face one-hot, equals autograd's backward
+    of the gather (a face shared by packed simplices, sentinel faces that
+    take no gradient) within GATHER_BWD_RTOL."""
+    tables, ranks, caps, ops, feats = setup
+    packed = ops["packed"]
+    lower = packed.face_onehots[rank].shape[-2]
+    x = torch.from_numpy(np.random.default_rng(rank).standard_normal((BATCH, lower, C)).astype(np.float32))
+    ct = torch.from_numpy(np.random.default_rng(9 + rank).standard_normal(
+        (BATCH, packed.faces[rank].shape[-2], C)).astype(np.float32))
+    x1, x2 = x.clone().requires_grad_(), x.clone().requires_grad_()
+    got, want = packed._gather_faces(rank, x1), _old_face_gather(packed, rank, x2)
+    assert torch.equal(got, want)
+    (g1,) = torch.autograd.grad(got, x1, ct)
+    (g2,) = torch.autograd.grad(want, x2, ct)
+    assert _rel(g1, g2) <= GATHER_BWD_RTOL
+    # Faces shared by several packed simplices: the sums the atomics made.
+    faces = packed.faces[rank]
+    shared = max(int(torch.bincount(f.reshape(-1)).max()) for f in faces)
+    assert shared > 1
+
+
+def test_packed_embedding_gather_forward_bit_for_bit_and_its_fixed_order_backward():
+    """``_RowGather`` (the packed rank's embedding gather) equals
+    ``table[idx]`` bit for bit, and its backward equals autograd's
+    backward of the index within GATHER_BWD_RTOL, with table rows that
+    several samples select."""
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((40, C)).astype(np.float32))
+    idx = torch.stack([torch.from_numpy(rng.permutation(40)[:12]) for _ in range(5)])
+    assert int(torch.bincount(idx.reshape(-1)).max()) > 1
+    ct = torch.from_numpy(rng.standard_normal((5, 12, C)).astype(np.float32))
+    t1, t2 = table.clone().requires_grad_(), table.clone().requires_grad_()
+    got, want = _RowGather.apply(t1, idx), t2[idx]
+    assert torch.equal(got, want)
+    (g1,) = torch.autograd.grad(got, t1, ct)
+    (g2,) = torch.autograd.grad(want, t2, ct)
+    assert _rel(g1, g2) <= GATHER_BWD_RTOL
+
+
+def test_packed_gathers_under_vmap_equal_their_unbatched_calls(setup):
+    """The vmapped tuner's path: both Functions under ``torch.func.vmap``
+    (every input vmapped, as each combo packs its own rows) equal one call
+    per combo, forward and gradient, bit for bit."""
+    tables, ranks, caps, ops, feats = setup
+    packed = ops["packed"]
+    k, rank = 2, 2
+    lower = packed.face_onehots[rank].shape[-2]
+    rng = np.random.default_rng(12)
+    faces = packed.faces[rank].expand(k, *packed.faces[rank].shape)
+    onehots = packed.face_onehots[rank].expand(k, *packed.face_onehots[rank].shape)
+    x = torch.from_numpy(rng.standard_normal((k, BATCH, lower, C)).astype(np.float32)).requires_grad_()
+    table = torch.from_numpy(rng.standard_normal((k, 40, C)).astype(np.float32)).requires_grad_()
+    idx = torch.from_numpy(np.stack([[rng.permutation(40)[:12] for _ in range(BATCH)] for _ in range(k)]))
+    sentinel = packed.is_packed(rank - 1)
+    vf = torch.func.vmap(lambda a, f, o: _FaceSum.apply(a, f, o, sentinel))(x, faces, onehots)
+    vr = torch.func.vmap(_RowGather.apply)(table, idx)
+    loop_f = torch.stack([_FaceSum.apply(x[i], faces[i], onehots[i], sentinel) for i in range(k)])
+    loop_r = torch.stack([_RowGather.apply(table[i], idx[i]) for i in range(k)])
+    assert torch.equal(vf, loop_f) and torch.equal(vr, loop_r)
+    ct_f, ct_r = torch.randn_like(vf), torch.randn_like(vr)
+    assert all(torch.equal(a, b) for a, b in zip(torch.autograd.grad((vf, vr), (x, table), (ct_f, ct_r)),
+                                                   torch.autograd.grad((loop_f, loop_r), (x, table), (ct_f, ct_r))))

@@ -65,6 +65,15 @@ SMALL = dict(num_vertices=4, num_bands=4, sccn_hidden_dim=8, n_sccn_layers=1)
 TRAIN_CLIPS, VAL_CLIPS = 17, 6  # odd: the sharded corpus pads; validate pads its batch
 GRID = {"encoder_lr": [1e-3, 5e-4], "decoder_lr": [1e-4], "complexity_penalty": [0.1]}
 GATHER_ROWS = 19  # not a multiple of 2 or 4
+# The step off the default path (soft Gumbel): BASELINE config 3's hard
+# Hard Concrete (per-rank Bernoulli rows), the learned stretch, and a
+# packed model (ranks 2-3 at half their rows); each from its own seed.
+OFF_DEFAULT = {
+    "hard_concrete_hard": dict(TINY, sampler="hard_concrete", hard=True),
+    "learned_hc": dict(TINY, sampler="hard_concrete", learned_hc=True),
+    "packed": dict(num_vertices=8, num_bands=4, sccn_hidden_dim=8, n_sccn_layers=2, max_active_vertices=8,
+                   pack_capacities=(0, 0, 28, 35)),
+}
 
 
 # ------------------------------------------------------------------ workers
@@ -109,6 +118,37 @@ def _step_results(mesh, inputs: dict) -> dict:
     return dict(total=total, comps=comps, grads=grads, metrics=metrics,
                 params={n: p.detach().clone() for n, p in model.named_parameters()},
                 jax_total=jtotal, jax_grads=jgrads)
+
+
+def _off_default_model(case: str) -> AudioAutoencoder:
+    return AudioAutoencoder.create(**OFF_DEFAULT[case], num_samples=T, device="cpu", seed=11, dropout=0.1)
+
+
+def _off_default_steps(mesh, inputs: dict) -> dict:
+    """Each OFF_DEFAULT model's step (loss and gradients, dropout on) on
+    this rank's rows."""
+    batch = shard_batch(inputs["batch"], mesh)
+    out = {}
+    for case in OFF_DEFAULT:
+        total, _, grads = make_loss_and_grads(_off_default_model(case), mesh=mesh)(batch, TEMPERATURE, SEED, 0)
+        out[case] = dict(total=total, grads=grads)
+    return out
+
+
+def _split_step(model, batch) -> tuple:
+    """The mean loss and the mean gradient of the 1-process step on the
+    batch's two halves, each computed alone with its rows of the whole
+    batch's draws: what two ranks compute, with no collective."""
+    import topo_audio_autoencoder_torch.training.train_step as train_step_mod
+
+    b = batch.shape[0]
+    halves = []
+    for r in range(2):
+        with mock.patch.object(train_step_mod, "row_shard", lambda mesh, r=r: RowShard(r, 2)):
+            half = make_loss_and_grads(model)
+        halves.append(half(batch[r * b // 2 : (r + 1) * b // 2], TEMPERATURE, SEED, 0))
+    total = (halves[0][0] + halves[1][0]) / 2
+    return total, {n: (halves[0][2][n] + halves[1][2][n]) / 2 for n in halves[0][2]}
 
 
 def _trainer_data():
@@ -167,7 +207,7 @@ def _job_pair(mesh, tmp: Path) -> dict:
     """The 2-rank group: the steps, the sharded gather, the Trainer with
     and without ``shard_corpus``, the tuner."""
     inputs = torch.load(tmp / "inputs.pt", weights_only=False)
-    out = dict(step=_step_results(mesh, inputs))
+    out = dict(step=_step_results(mesh, inputs), off_default=_off_default_steps(mesh, inputs))
     out["gather"] = _gather(mesh, inputs)
     out["trainer"] = {shard: _trainer_run(mesh, tmp / f"dp_{shard}", shard_corpus=shard) for shard in (False, True)}
     out["tune"] = _tune(mesh)
@@ -240,6 +280,7 @@ def groups(tmp_path_factory):
     torch.save(inputs, tmp / "inputs.pt")
     running = {"pair": _spawn(tmp, "pair", 2), "quad": _spawn(tmp, "quad", 4)}
     ref = dict(inputs=inputs, jm=jm, params=params, step=_step_results(None, inputs),
+               off_default={case: _split_step(_off_default_model(case), inputs["batch"]) for case in OFF_DEFAULT},
                floors=_one_process_floors(inputs), trainer=_trainer_run(None, tmp / "single"), tune=_tune(None))
     ref["jax"] = _jax_dp_step(jax, jm, params, inputs)
     return dict(ref=ref, tmp=tmp, **{job: _join(tmp, job, procs) for job, procs in running.items()})
@@ -272,12 +313,7 @@ def _one_process_floors(inputs: dict) -> dict:
     b = batch.shape[0]
     loss_and_grads = make_loss_and_grads(model)
     _, _, whole = loss_and_grads(batch, TEMPERATURE, SEED, 0)
-    halves = []
-    for r in range(2):
-        with mock.patch.object(train_step_mod, "row_shard", lambda mesh, r=r: RowShard(r, 2)):
-            half = make_loss_and_grads(model)
-        halves.append(half(batch[r * b // 2 : (r + 1) * b // 2], TEMPERATURE, SEED, 0)[2])
-    split = {n: (halves[0][n] + halves[1][n]) / 2 for n in whole}
+    _, split = _split_step(model, batch)
     seed = seed_from(train_step_mod.step_generators(SEED, 0, "cpu")[0])
     noise = philox_uniform(b * model.encoder.total_simplices, seed).reshape(b, -1)
     rand_rows = encoder_mod.rand_rows
@@ -462,6 +498,23 @@ def test_two_ranks_equal_the_split_step_bit_for_bit(groups):
         got = out["step"]["grads"]
         assert got.keys() == split.keys()
         assert all(torch.equal(got[n], split[n]) for n in split)
+
+
+@pytest.mark.parametrize("case", sorted(OFF_DEFAULT))
+def test_two_ranks_equal_the_split_step_off_the_default_path_bit_for_bit(groups, case):
+    """Off the soft Gumbel path (BASELINE config 3's hard Hard Concrete
+    with its per-rank Bernoulli rows, the learned stretch, the packed
+    model with its top-K select and packed gathers): the ranks' loss and
+    every leaf of their gradient equal the split 1-process step's bit for
+    bit, as on the default path."""
+    want_total, want = groups["ref"]["off_default"][case]
+    for out in groups["pair"]:
+        got = out["off_default"][case]
+        assert torch.equal(got["total"], want_total)
+        assert got["grads"].keys() == want.keys()
+        differ = [n for n in want if not torch.equal(got["grads"][n], want[n])]
+        assert not differ, differ
+    assert any(bool(g.abs().sum() > 0) for g in want.values())
 
 
 def test_two_ranks_equal_one_process_gradient(groups):

@@ -135,3 +135,53 @@ def test_same_rank_matmul_and_dense_adjacency_match_jax(max_rank, rank):
     else:
         assert adj.abs().max() > 0
         torch.testing.assert_close(adj, adj.transpose(-1, -2))
+
+
+# The two contractions sum the same k log-faces in other orders: fp32
+# round-off apart, values and gradients (as the JAX package's own parity
+# test of its two forms).
+METHOD_RTOL, METHOD_ATOL = 1e-6, 1e-7
+
+
+def _rectified_and_grads(enforce, ranks, w, method, framework):
+    """The rectified ranks and the gradient of sum(w * all simplices) to the
+    four input ranks, in ``framework``."""
+    if framework == "jax":
+        import jax
+
+        def f(*r):
+            out = enforce(*r, jt.build_tables(6), method=method)
+            return (out.all_simplices * w).sum(), out.ranks
+
+        (_, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3), has_aux=True)(
+            *(jnp.asarray(r) for r in ranks))
+        return [np.asarray(o) for o in out], [np.asarray(g) for g in grads]
+    inputs = [torch.from_numpy(r).requires_grad_() for r in ranks]
+    out = enforce(*inputs, pt.build_tables(6), method=method)
+    grads = torch.autograd.grad((out.all_simplices * torch.from_numpy(w)).sum(), inputs)
+    return [o.detach().numpy() for o in out.ranks], [g.numpy() for g in grads]
+
+
+def test_rectifier_matmul_form_matches_the_gather_form_and_both_jax_forms():
+    """``enforce_constraints(method="matmul")`` (products with the dense
+    memberships) against the default gather form and the JAX package's
+    two forms, values and gradients, with exact zeros propagating; a bad
+    ``method`` raises JAX's ValueError."""
+    tables = pt.build_tables(6)
+    rng = np.random.default_rng(3)
+    p = _probs(rng, tables, zero_frac=0.1)
+    ranks = tables.split(p)
+    w = rng.standard_normal(p.shape).astype(np.float32)
+    assert pt.rectifier.DEFAULT_METHOD == jt.rectifier.DEFAULT_METHOD == "gather"
+    ref_out, ref_grads = _rectified_and_grads(pt.enforce_constraints, ranks, w, "gather", "torch")
+    for method, framework in (("matmul", "torch"), ("gather", "jax"), ("matmul", "jax")):
+        enforce = pt.enforce_constraints if framework == "torch" else jt.enforce_constraints
+        out, grads = _rectified_and_grads(enforce, ranks, w, method, framework)
+        for g, want in zip(out, ref_out):
+            np.testing.assert_allclose(g, want, rtol=METHOD_RTOL, atol=METHOD_ATOL, err_msg=(method, framework))
+            np.testing.assert_array_equal(g == 0.0, want == 0.0)
+        for g, want in zip(grads, ref_grads):
+            np.testing.assert_allclose(g, want, rtol=METHOD_RTOL, atol=METHOD_ATOL, err_msg=(method, framework))
+    assert (ref_out[2] == 0.0).sum() > (ranks[2] == 0.0).sum()  # zeros propagated
+    with pytest.raises(ValueError, match="method must be 'matmul' or 'gather'"):
+        pt.enforce_constraints(*(torch.from_numpy(r) for r in ranks), tables, method="dense")

@@ -34,6 +34,7 @@ import torch
 from _torch_parity import TINY, flax_params, port_model, waveforms
 
 from topo_audio_autoencoder_torch.convert import state_dict_from_flax
+from topo_audio_autoencoder_torch.models import AudioAutoencoder as TorchAutoencoder
 from topo_audio_autoencoder_torch.training import (
     anneal_temperature,
     create_train_state,
@@ -406,3 +407,115 @@ def test_training_after_codec_inference():
     state, metrics = make_train_step(model, opt)(
         create_train_state(model, opt), waveforms(2, 6, T).reshape(2, 3, 1, T), TEMPERATURE, 0)
     assert torch.isfinite(metrics["total_loss"]) and state.step == 1
+
+
+# ------------------------------------------------------------ flat_groups
+
+FLAT_UPDATES = 3
+# optax (XLA) and torch evaluate Adam's elementwise formulas in fp32 each,
+# XLA fusing them: a few ulps apart, held to 1e-6 of each leaf's largest
+# element (tests/test_torch_convert.py's optimizer bound).
+FLAT_OPTAX_RTOL = 1e-6
+
+
+def _micro_grads(template: dict, steps: int, seed: int) -> list:
+    """``steps`` gradient dicts of small normals (global norm well under the
+    clip at 10)."""
+    rng = np.random.default_rng(seed)
+    return [{n: torch.tensor(rng.standard_normal(tuple(t.shape)) * 1e-3, dtype=torch.float32)
+             for n, t in template.items()} for _ in range(steps)]
+
+
+@pytest.mark.parametrize("accumulate", [1, 4])
+def test_flat_groups_equal_the_per_leaf_optimizer_bit_for_bit(accumulate):
+    """``make_optimizer(flat_groups=True)`` gives the per-leaf optimizer's
+    parameters and moments bit for bit after FLAT_UPDATES updates, with
+    one update clipped, with accumulation 1 and 4."""
+    models = [_tiny_model() for _ in range(2)]
+    template = dict(models[0].named_parameters())
+    grads = _micro_grads(template, FLAT_UPDATES * accumulate, seed=accumulate)
+    for i in range(accumulate):  # update 1's micro-steps, 1e4 times larger: clipped
+        grads[accumulate + i] = {n: g * 1e4 for n, g in grads[accumulate + i].items()}
+    opts = [make_optimizer(accumulate_grad_batches=accumulate, flat_groups=flat) for flat in (False, True)]
+    states = [opt.init(m) for opt, m in zip(opts, models)]
+    norms = []
+    for g in grads:
+        for opt, state, m in zip(opts, states, models):
+            opt.update({n: t.clone() for n, t in g.items()}, state, m)
+        norms.append(float(torch.sqrt(sum((t * t).sum() for t in g.values()))))
+    assert max(norms) > opts[0].max_norm > min(norms)
+    per_leaf, flat = states
+    assert flat.count == per_leaf.count == FLAT_UPDATES and set(flat.mu) == {"encoder", "decoder"}
+    for (n, a), b in zip(models[0].named_parameters(), models[1].parameters()):
+        assert torch.equal(a, b), n
+    groups = opts[1].groups(template)
+    for g, names in groups.items():
+        for what in ("mu", "nu"):
+            leaves = torch.cat([getattr(per_leaf, what)[n].reshape(-1) for n in names])
+            assert torch.equal(getattr(flat, what)[g], leaves), (g, what)
+
+
+def _tiny_model():
+    return TorchAutoencoder.create(**TINY, num_samples=T, device="cpu")
+
+
+def test_flat_groups_match_optax_flatten_and_its_state_converts():
+    """The port's flat optimizer against the JAX package's
+    ``make_optimizer(flat_groups=True)`` (optax alone, no train step) on
+    the tiny model's tree and the same gradients: the parameters after
+    every update within FLAT_OPTAX_RTOL, and optax's flat state, converted
+    by ``opt_state_from_optax``, equal to the port's own moments within
+    the same bound."""
+    from topo_audio_autoencoder_torch.convert import opt_state_from_optax
+
+    params = flax_params(JaxAutoencoder.create(**TINY), num_samples=T)
+    pm = port_model(params, num_samples=T)
+    template = pm.state_dict()
+    jopt = jax_make_optimizer(accumulate_grad_batches=1, flat_groups=True)
+    jparams = jax.tree.map(jnp.asarray, params)
+    jstate = jopt.init(jparams)
+    update = jax.jit(jopt.update)
+    popt = make_optimizer(accumulate_grad_batches=1, flat_groups=True)
+    pstate = popt.init(pm)
+    rng = np.random.default_rng(5)
+    for _ in range(FLAT_UPDATES):
+        jgrads = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 0.1).astype(np.float32), params)
+        updates, jstate = update(jax.tree.map(jnp.asarray, jgrads), jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        popt.update(state_dict_from_flax(jgrads, template), pstate, pm)
+        want = state_dict_from_flax(jax.device_get(jparams), template)
+        for n, p in pm.named_parameters():
+            scale = float(want[n].abs().max())
+            assert float((p.detach() - want[n]).abs().max()) <= FLAT_OPTAX_RTOL * scale, n
+    converted = opt_state_from_optax(jax.device_get(jstate), template)
+    assert converted.count == pstate.count == FLAT_UPDATES and set(converted.mu) == {"encoder", "decoder"}
+    for what in ("mu", "nu"):
+        for g, got in getattr(converted, what).items():
+            mine = getattr(pstate, what)[g]
+            assert float((got - mine).abs().max()) <= FLAT_OPTAX_RTOL * float(mine.abs().max()), (what, g)
+
+
+@pytest.mark.parametrize("saved_flat", [False, True])
+def test_a_checkpoint_restores_only_into_its_own_optimizer_layout(saved_flat):
+    """A per-leaf state restored by a flat optimizer, or the reverse,
+    raises an error that names ``flat_groups`` (the Trainer's restore
+    path, ``Trainer._load_tree``); the same layout restores."""
+    from types import SimpleNamespace
+
+    from topo_audio_autoencoder_torch.training import Trainer, TrainState
+    from topo_audio_autoencoder_torch.training.checkpoint import to_host
+
+    model = _tiny_model()
+    saved = make_optimizer(flat_groups=saved_flat).init(model)
+    tree = {"params": to_host(model.state_dict()),
+            "opt_state": {"mu": to_host(saved.mu), "nu": to_host(saved.nu), "count": 2, "mini_step": 0,
+                          "acc": {}}, "step": 4}
+    for flat in (saved_flat, not saved_flat):
+        opt = make_optimizer(flat_groups=flat)
+        trainer = SimpleNamespace(state=TrainState(model, opt.init(model)), optimizer=opt, mesh=None)
+        if flat == saved_flat:
+            Trainer._load_tree(trainer, tree)
+            assert trainer.state.opt_state.count == 2 and trainer.state.step == 4
+        else:
+            with pytest.raises(ValueError, match="flat_groups"):
+                Trainer._load_tree(trainer, tree)

@@ -17,6 +17,7 @@ checkpoints and resume) and ``CheckpointManager``; ``main`` runs it all:
 ``python -m topo_audio_autoencoder_torch.main [section.key=value ...]``.
 """
 
+from . import ops, topology
 from .data import (
     ContrastiveConfig,
     NSynthDataset,

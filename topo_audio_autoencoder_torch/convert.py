@@ -109,10 +109,6 @@ def _flatten_unmasked(tree: Mapping, prefix: tuple = ()) -> dict:
     return flat
 
 
-def _group_of(name: str) -> str:
-    return "encoder" if name.startswith("encoder.") else "decoder"
-
-
 def opt_state_from_optax(opt_state, template: Mapping):
     """Convert the JAX package's optax state to the port's ``OptState``.
 
@@ -123,14 +119,19 @@ def opt_state_from_optax(opt_state, template: Mapping):
     ``encoder`` group, every other one from ``decoder``; the other group's
     entries are masked); ``count`` is the number of applied updates, equal
     in both groups. Under ``MultiSteps`` its ``mini_step`` and, mid-cycle,
-    ``acc_grads`` become the port's ``mini_step`` and ``acc``.
+    ``acc_grads`` become the port's ``mini_step`` and ``acc``. A state of
+    ``make_optimizer(flat_groups=True)`` holds each group's moments as one
+    vector raveled over the group's leaves in flax's order, the port's flat
+    order too (``train_step.flax_order``), each leaf in flax's layout: the
+    converter reorders the elements of every Dense and Conv kernel into the
+    port's layout, for an ``OptState`` of ``make_optimizer(flat_groups=True)``.
 
     ``template`` is the port model's ``state_dict()``: the moments take its
     names, shapes, dtypes and device. Raises where a leaf cannot be placed
     (a foreign name, a leaf in the wrong group, a wrong shape) or a
     parameter is left without moments.
     """
-    from .training.train_step import OptState
+    from .training.train_step import GROUPS, OptState, flax_order, group_of
 
     def tensor(name, path, value):
         if name not in template:
@@ -149,30 +150,55 @@ def opt_state_from_optax(opt_state, template: Mapping):
         out = {}
         for path, value in _flatten_unmasked(tree).items():
             name, array = _torch_leaf(path, value)
-            if group is not None and _group_of(name) != group:
+            if group is not None and group_of(name) != group:
                 raise ValueError(f"optax leaf {'/'.join(path)} -> {name} is in the {group} group")
             out[name] = tensor(name, path, array)
         return out
 
+    def flat_vector(group, value):
+        """optax.flatten's vector (flax's leaves, each in flax's layout) ->
+        the port's (the same leaves, each in the port's layout)."""
+        names = [n for n in flax_order(template) if group_of(n) == group]
+        sizes = [template[n].numel() for n in names]
+        value = np.asarray(value)
+        if value.shape != (sum(sizes),):
+            raise ValueError(f"optax group {group!r}: a flat moment of shape {value.shape}, "
+                             f"the group's {len(names)} parameters hold {sum(sizes)}")
+        parts = []
+        for name, part in zip(names, np.split(value, np.cumsum(sizes)[:-1])):
+            shape = tuple(template[name].shape)
+            if name.endswith(".weight") and len(shape) >= 2:  # a kernel: flax's layout is the port's reversed
+                part = part.reshape(shape[::-1]).transpose()
+            parts.append(part.reshape(-1))
+        first = template[names[0]]
+        return torch.tensor(np.concatenate(parts), dtype=first.dtype, device=first.device)
+
     partition = _find(opt_state, "inner_states")
     if partition is None:
         raise ValueError("no multi_transform state (inner_states) in the optax state")
-    mu, nu, counts = {}, {}, set()
+    mu, nu, counts, layouts = {}, {}, set(), set()
     for group, masked in partition.inner_states.items():
-        if group not in ("encoder", "decoder"):
+        if group not in GROUPS:
             raise KeyError(f"optax group {group!r}: the port has only 'encoder' and 'decoder'")
         adam = _find(getattr(masked, "inner_state", masked), "nu")
         if adam is None or not hasattr(adam, "mu") or not hasattr(adam, "count"):
             raise ValueError(f"optax group {group!r} holds no Adam state (mu, nu, count)")
+        flat = hasattr(adam.mu, "shape")  # optax.flatten: one raveled vector a group
+        layouts.add(flat)
         for into, moments in ((mu, adam.mu), (nu, adam.nu)):
+            if flat:
+                into[group] = flat_vector(group, moments)
+                continue
             converted = convert(moments, group)
             clash = set(into) & set(converted)
             if clash:
                 raise ValueError(f"optax leaves in two groups: {sorted(clash)}")
             into.update(converted)
         counts.add(int(np.asarray(adam.count)))
+    if len(layouts) != 1:
+        raise ValueError("one optax group is flattened (flat_groups) and the other is not")
     for what, moments in (("mu", mu), ("nu", nu)):
-        missing = sorted(set(template) - set(moments))
+        missing = sorted(set(GROUPS) - set(moments) if layouts == {True} else set(template) - set(moments))
         if missing:
             raise KeyError(f"port parameters without an optax {what}: {missing}")
     if len(counts) != 1:

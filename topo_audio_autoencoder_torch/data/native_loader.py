@@ -73,6 +73,16 @@ def get_lib() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the native library loads (built first if missing); never
+    raises."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _f32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 

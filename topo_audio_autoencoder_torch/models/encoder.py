@@ -83,6 +83,40 @@ def dropout(
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+class _RowGather(torch.autograd.Function):
+    """``table[idx]``: the rows of ``table`` [S, C] named by ``idx``
+    [..., K] -> [..., K, C], where each row of ``idx`` names distinct
+    table rows (top-K indices). The backward writes each row of ``idx``'s
+    cotangents into a zero [S, C] block of its own (no collisions within a
+    row) and sums the blocks over the leading axes in a fixed order:
+    autograd's own backward of the index adds a table row selected by
+    several samples with atomics on the card, in an order that changes from
+    run to run, and the step would not repeat its gradients bit for bit.
+    Under ``torch.func.vmap`` both the forward and the backward are
+    vmapped as written (a vmapped table: one [S, C] block per combo)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(table, idx):
+        return table[idx]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, idx = inputs
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        k, c = idx.shape[-1], g.shape[-1]
+        rows = g.reshape(-1, k, c)
+        index = idx.reshape(-1, k, 1).expand(-1, -1, c)
+        blocks = torch.zeros(rows.shape[0], ctx.rows, c, dtype=g.dtype, device=g.device)
+        return blocks.scatter(1, index, rows).sum(dim=0), None
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> nn.Conv1d:
     return nn.Conv1d(
         cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, groups=groups
@@ -290,7 +324,7 @@ class AudioEncoder(nn.Module):
             if idx[r] is None:
                 out.append(table * probs.ranks[r][..., None])
             else:
-                out.append(table[idx[r]] * torch.gather(probs.ranks[r], -1, idx[r])[..., None])
+                out.append(_RowGather.apply(table, idx[r]) * torch.gather(probs.ranks[r], -1, idx[r])[..., None])
         return tuple(out)
 
     def operators(self, rect: RectifiedProbs, masks: tuple):

@@ -10,7 +10,9 @@ from .attention import (
     reference_attention,
 )
 from .fused_hard_concrete import (
+    hard_concrete_fused,
     hard_concrete_fused_diff,
+    hard_concrete_fused_learned,
     hard_concrete_fused_learned_diff,
     hard_concrete_learned_plain,
     hard_concrete_learned_sample,
@@ -24,7 +26,7 @@ from .fused_samplers import (
     binary_gumbel_sample,
     philox_uniform,
 )
-from .pqmf import PQMF
+from .pqmf import PQMF, design_prototype
 from .samplers import (
     HardConcreteParams,
     bernoulli_ste,
@@ -35,9 +37,16 @@ from .samplers import (
     temperature_schedule,
 )
 from .sccn_combine import combine_bwd, combine_fwd, fused_message_combine, message_combine_reference
-from .stft import multiscale_stft, spectral_distance, stft_magnitude
+from .stft import (
+    DEFAULT_SCALES,
+    multiscale_stft,
+    spectral_distance,
+    spectral_distance_matrix_block,
+    stft_magnitude,
+)
 
 __all__ = [
+    "DEFAULT_SCALES",
     "HardConcreteParams",
     "PQMF",
     "MaskedAttention",
@@ -53,10 +62,13 @@ __all__ = [
     "binary_gumbel_sample",
     "combine_bwd",
     "combine_fwd",
+    "design_prototype",
     "fused_masked_attention",
     "fused_message_combine",
     "hard_concrete",
+    "hard_concrete_fused",
     "hard_concrete_fused_diff",
+    "hard_concrete_fused_learned",
     "hard_concrete_fused_learned_diff",
     "hard_concrete_l0_penalty",
     "hard_concrete_learned_plain",
@@ -68,6 +80,7 @@ __all__ = [
     "philox_uniform",
     "reference_attention",
     "spectral_distance",
+    "spectral_distance_matrix_block",
     "stft_magnitude",
     "straight_through",
     "temperature_schedule",

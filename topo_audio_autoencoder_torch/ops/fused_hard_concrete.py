@@ -172,6 +172,40 @@ def hard_concrete_learned_sample(
 hard_concrete_learned_sample.launches = 0
 
 
+def hard_concrete_fused(
+    log_alpha: torch.Tensor,
+    generator: torch.Generator | None,
+    temperature,
+    params: HardConcreteParams = HardConcreteParams(),
+    training: bool = True,
+) -> torch.Tensor:
+    """The JAX package's ``hard_concrete_fused``: a fixed-stretch Hard
+    Concrete sample through the fused pass (``hard_concrete_sample``),
+    forward only. ``generator`` (a ``torch.Generator`` where JAX takes a
+    PRNG key) gives the Philox seed; eval mode is the noiseless gate."""
+    if not training:
+        return hard_concrete(log_alpha, None, temperature, params, training=False)
+    return hard_concrete_sample(log_alpha, float(temperature), seed=_seed(generator, None),
+                                gamma=float(params.gamma), zeta=float(params.zeta))
+
+
+def hard_concrete_fused_learned(
+    log_alpha: torch.Tensor,
+    generator: torch.Generator | None,
+    beta: torch.Tensor,
+    gamma: torch.Tensor,
+    zeta: torch.Tensor,
+    training: bool = True,
+) -> torch.Tensor:
+    """The JAX package's ``hard_concrete_fused_learned``: Hard Concrete with
+    the learned per-simplex stretch ([S] rows) through the fused pass
+    (``hard_concrete_learned_sample``), forward only; ``generator`` as in
+    ``hard_concrete_fused``. Eval mode is the noiseless gate."""
+    if not training:
+        return hard_concrete(log_alpha, None, beta, HardConcreteParams(gamma, zeta), training=False)
+    return hard_concrete_learned_sample(log_alpha, beta, gamma, zeta, seed=_seed(generator, None))
+
+
 def _recovered_s(z, gamma, zeta):
     """The pre-clip sigmoid recovered from the gate where it is unclipped
     (clipped gates take no gradient, so any in-range value serves there),

@@ -128,6 +128,11 @@ class PQMF(nn.Module):
         self.recon_error = err
         self.register_buffer("filters", torch.from_numpy(hk)[:, None, :], persistent=False)
 
+    @classmethod
+    def create(cls, attenuation: float = 100.0, n_band: int = 16) -> "PQMF":
+        """The JAX package's constructor; the same as ``PQMF(attenuation, n_band)``."""
+        return cls(attenuation, n_band)
+
     @property
     def taps(self) -> int:
         return self.filters.shape[-1]

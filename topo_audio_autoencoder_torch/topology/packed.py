@@ -60,14 +60,7 @@ class PackedOperators(NamedTuple):
     def _gather_faces(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """``M_rank @ x`` over packed rows: the sum of x over each packed
         simplex's faces. x: [..., lower, C] -> [..., K_rank, C]."""
-        faces = self.faces[rank]  # [..., K, F]
-        if self.is_packed(rank - 1):
-            # The sentinel K_lower points one past the end: a zero row makes
-            # a face dropped from the lower rank's capacity gather zeros.
-            x = torch.cat([x, x.new_zeros((*x.shape[:-2], 1, x.shape[-1]))], dim=-2)
-        flat = faces.reshape(*faces.shape[:-2], -1, 1)  # [..., K*F, 1]
-        g = torch.take_along_dim(x, flat, dim=-2)  # [..., K*F, C]
-        return g.reshape(*faces.shape, x.shape[-1]).sum(dim=-2)
+        return _FaceSum.apply(x, self.faces[rank], self.face_onehots[rank], self.is_packed(rank - 1))
 
     def _scatter_faces(self, rank: int, u: torch.Tensor) -> torch.Tensor:
         """``M_rank^T @ u`` over packed rows: each packed simplex's value
@@ -113,6 +106,48 @@ class PackedOperators(NamedTuple):
             return self._scatter_faces(rank + 1, (p * p)[..., :, None])[..., 0]
         p = self.probs[rank]
         return (p * p) * float(rank + 1)
+
+
+def face_sum(x: torch.Tensor, faces: torch.Tensor, sentinel: bool) -> torch.Tensor:
+    """The sum of x over each packed simplex's faces, by gather:
+    x [..., lower, C], faces [..., K, F] -> [..., K, C]. With ``sentinel``
+    the id ``lower`` names a face dropped from the lower rank's capacity,
+    which gathers a zero row."""
+    if sentinel:
+        x = torch.cat([x, x.new_zeros((*x.shape[:-2], 1, x.shape[-1]))], dim=-2)
+    flat = faces.reshape(*faces.shape[:-2], -1, 1)  # [..., K*F, 1]
+    g = torch.take_along_dim(x, flat, dim=-2)  # [..., K*F, C]
+    return g.reshape(*faces.shape, x.shape[-1]).sum(dim=-2)
+
+
+class _FaceSum(torch.autograd.Function):
+    """``face_sum`` forward; the backward is its adjoint ``M^T g``, the
+    product with the 0/1 matrix ``onehot`` [..., lower, K] (sentinel faces
+    dropped), as ``_scatter_faces`` computes it: autograd's own backward of
+    the gather adds a face shared by several packed simplices with atomics
+    on the card, in an order that changes from run to run, and the step
+    would not repeat its gradients bit for bit. Under ``torch.func.vmap``
+    the vmapped axis becomes one more leading axis of every input."""
+
+    @staticmethod
+    def forward(x, faces, onehot, sentinel):
+        return face_sum(x, faces, sentinel)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
+
+    @staticmethod
+    def vmap(info, in_dims, x, faces, onehot, sentinel):
+        k = info.batch_size
+        x, faces, onehot = (t.movedim(d, 0) if d is not None else t.expand(k, *t.shape)
+                            for t, d in zip((x, faces, onehot), in_dims[:3]))
+        return _FaceSum.apply(x, faces, onehot, sentinel), 0
+
+    @staticmethod
+    def backward(ctx, g):
+        (onehot,) = ctx.saved_tensors
+        return onehot.to(g.dtype) @ g, None, None, None
 
 
 def build_packed_operators(

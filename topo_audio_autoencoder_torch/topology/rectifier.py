@@ -1,6 +1,8 @@
 """Simplicial-closure rectification of per-simplex probabilities.
 
-Port of ``topo_audio_autoencoder_tpu.topology.rectifier`` (gather method).
+Port of ``topo_audio_autoencoder_tpu.topology.rectifier``, with both
+contractions (``method``: the face gather by default, or the product with
+the dense memberships).
 Rank by rank, bottom-up:
 
 1. a simplex with any zero-probability face gets probability exactly 0, and
@@ -122,6 +124,25 @@ def _rectify_rank(
     return torch.minimum(raw, geo)
 
 
+def _rectify_rank_matmul(raw: torch.Tensor, face_probs: torch.Tensor, membership_t: torch.Tensor, k: float,
+                         eps: float) -> torch.Tensor:
+    """The same rectification as a product with the transposed dense
+    membership [F, S]: ``log(face + eps) @ membership_t / k``, and a zero
+    face found by ``(face == 0) @ membership_t > 0``."""
+    geo = torch.exp(torch.log(face_probs + eps) @ membership_t / k)
+    zero = (face_probs == 0.0).to(membership_t.dtype) @ membership_t
+    geo = torch.where(zero > 0.0, torch.zeros_like(geo), geo)
+    return torch.minimum(raw, geo)
+
+
+# The contraction of the face geometric means: "gather" reads the k face
+# values of each simplex through the static face tables; "matmul" is a
+# product with the dense membership matrices (tables.v2e/e2t/t2tt, built
+# once per device; t2tt is [S_3, S_2], 99.65% zeros at n=20 and 713 MB in
+# fp32 at n=32). The same function either way, summed in other orders.
+DEFAULT_METHOD = "gather"
+
+
 def enforce_constraints(
     vertex_probs: torch.Tensor,
     edge_probs: torch.Tensor,
@@ -129,20 +150,33 @@ def enforce_constraints(
     tetra_probs: torch.Tensor,
     tables: ComplexTables,
     eps: float = 1e-10,
+    method: str | None = None,
 ) -> RectifiedProbs:
     """Rectify probabilities bottom-up so they form a valid (soft) complex.
 
     Accepts arbitrary leading batch dims. Vertices pass through unrectified.
+    ``method``: "gather" or "matmul" (default ``DEFAULT_METHOD``).
     """
+    method = method or DEFAULT_METHOD
     in_dtype = vertex_probs.dtype
     v, e, t, tt = (
         p.to(torch.float32) for p in (vertex_probs, edge_probs, triangle_probs, tetra_probs)
     )
-    edges, tri_edges, tet_tris = face_indices(tables, v.device)
-    a_edges, a_tri_edges, a_tet_tris = face_adjoints(tables, v.device)
-    re = _rectify_rank(e, v, edges, a_edges, eps)
-    rt = _rectify_rank(t, re, tri_edges, a_tri_edges, eps)
-    rtt = _rectify_rank(tt, rt, tet_tris, a_tet_tris, eps)
+    if method == "gather":
+        edges, tri_edges, tet_tris = face_indices(tables, v.device)
+        a_edges, a_tri_edges, a_tet_tris = face_adjoints(tables, v.device)
+        re = _rectify_rank(e, v, edges, a_edges, eps)
+        rt = _rectify_rank(t, re, tri_edges, a_tri_edges, eps)
+        rtt = _rectify_rank(tt, rt, tet_tris, a_tet_tris, eps)
+    elif method == "matmul":
+        from .builder import membership_matrices
+
+        v2e, e2t, t2tt = (m.transpose(0, 1) for m in membership_matrices(tables, torch.float32, v.device))
+        re = _rectify_rank_matmul(e, v, v2e, 2.0, eps)
+        rt = _rectify_rank_matmul(t, re, e2t, 3.0, eps)
+        rtt = _rectify_rank_matmul(tt, rt, t2tt, 4.0, eps)
+    else:
+        raise ValueError(f"method must be 'matmul' or 'gather', got {method!r}")
     return RectifiedProbs(*(p.to(in_dtype) for p in (v, re, rt, rtt)))
 
 

@@ -21,10 +21,11 @@ from .train_step import (
     make_train_step,
 )
 from .trainer import Trainer, TrainerConfig
-from .tuner import VmappedGridTuner
+from .tuner import GridState, VmappedGridTuner
 
 __all__ = [
     "CheckpointManager",
+    "GridState",
     "LossWeights",
     "MetricWriter",
     "OptState",

@@ -69,8 +69,10 @@ from .losses import LossWeights, autoencoder_loss
 
 @dataclass
 class OptState:
-    """Adam moments per parameter name, the count of applied updates, and
-    the accumulation buffer (the running mean of this cycle's gradients)."""
+    """Adam moments per parameter name (with ``flat_groups``: one flat
+    vector per group, keyed ``encoder`` and ``decoder``), the count of
+    applied updates, and the accumulation buffer (the running mean of this
+    cycle's gradients, per parameter name in either layout)."""
 
     mu: dict
     nu: dict
@@ -83,11 +85,40 @@ class OptState:
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+GROUPS = ("encoder", "decoder")
+
+
+def group_of(name: str) -> str:
+    """The optimizer group of a parameter name."""
+    return "encoder" if name.startswith("encoder.") else "decoder"
+
+
+def flax_order(params: dict) -> list:
+    """The parameter names in the order of the JAX package's leaves: flax
+    paths sorted component by component, a ``weight`` named by its flax
+    leaf (``scale`` for a norm's 1-d weight, else ``kernel``). It is the
+    order in which ``optax.flatten`` ravels a group's leaves."""
+
+    def path(name):
+        *modules, leaf = name.split(".")
+        if leaf == "weight":
+            leaf = "scale" if params[name].ndim == 1 else "kernel"
+        return (*modules, leaf)
+
+    return sorted(params, key=path)
 
 
 class Optimizer:
     """clip -> {encoder: adam(lr_e), decoder: adam(lr_d)}, accumulated over
-    ``accumulate_grad_batches`` calls. optax's formulas, in fp32."""
+    ``accumulate_grad_batches`` calls. optax's formulas, in fp32.
+
+    ``flat_groups``: each group's Adam runs on one flat vector, as the JAX
+    package's ``optax.flatten`` does: the group's clipped gradients are
+    concatenated in ``flax_order``, the moments are one vector a group, and
+    the update reaches the parameters through views of one flat update.
+    The elementwise arithmetic is the per-leaf path's, so both layouts give
+    the same bits. The clip and the accumulation stay per leaf, as optax
+    applies them outside the flatten."""
 
     def __init__(
         self,
@@ -95,6 +126,7 @@ class Optimizer:
         decoder_lr: float = 1e-4,
         gradient_clip_val: float = 10.0,
         accumulate_grad_batches: int = 4,
+        flat_groups: bool = False,
     ):
         if accumulate_grad_batches < 1:
             raise ValueError("accumulate_grad_batches must be at least 1")
@@ -102,16 +134,53 @@ class Optimizer:
         self.decoder_lr = decoder_lr
         self.max_norm = gradient_clip_val
         self.every_k = accumulate_grad_batches
+        self.flat_groups = flat_groups
+        self._groups = (None, None)
 
     def learning_rate(self, name: str) -> float:
-        return self.encoder_lr if name.startswith("encoder.") else self.decoder_lr
+        return self.group_learning_rate(group_of(name))
+
+    def group_learning_rate(self, group: str) -> float:
+        return self.encoder_lr if group == "encoder" else self.decoder_lr
+
+    def groups(self, params: dict) -> dict:
+        """Each group's parameter names in ``flax_order`` (kept for the
+        names last asked about)."""
+        names = tuple(params)
+        if self._groups[0] != names:
+            order = flax_order(params)
+            self._groups = (names, {g: [n for n in order if group_of(n) == g] for g in GROUPS})
+        return self._groups[1]
 
     def init(self, model: nn.Module) -> OptState:
         params = dict(model.named_parameters())
+        if self.flat_groups:
+            groups = self.groups(params)
+            zeros = {g: torch.cat([torch.zeros_like(params[n]).reshape(-1) for n in names])
+                     for g, names in groups.items()}
+            return OptState(mu=zeros, nu={g: z.clone() for g, z in zeros.items()})
         return OptState(
             mu={n: torch.zeros_like(p) for n, p in params.items()},
             nu={n: torch.zeros_like(p) for n, p in params.items()},
         )
+
+    def check_layout(self, moments: dict, params: dict, what: str = "the optimizer state") -> None:
+        """Raises unless ``moments`` (a state's ``mu`` or ``nu``) is in this
+        optimizer's layout: one tensor per parameter name, or with
+        ``flat_groups`` one vector per group."""
+        flat = set(moments) == set(GROUPS)
+        if flat != self.flat_groups:
+            raise ValueError(
+                f"{what} holds {'flat per-group' if flat else 'per-leaf'} Adam moments, and this optimizer "
+                f"has flat_groups={self.flat_groups}: a state restores only into the layout it was saved from"
+            )
+        if not flat and set(moments) != set(params):
+            raise KeyError(f"{what}: the moments do not cover the model's parameters")
+        for group, names in self.groups(params).items() if flat else ():
+            size = sum(params[n].numel() for n in names)
+            if moments[group].numel() != size:
+                raise ValueError(f"{what}: the {group} group's flat moments hold {moments[group].numel()} "
+                                 f"elements, its parameters {size}")
 
     def update(self, grads: dict, state: OptState, model: nn.Module) -> bool:
         """Take one micro-step's gradients; on every k-th call apply the
@@ -141,6 +210,13 @@ class Optimizer:
     def _apply(self, grads: dict, state: OptState, params: dict) -> None:
         state.count += 1
         corrections = bias_corrections(state.count)
+        if self.flat_groups:
+            for group, names in self.groups(params).items():
+                flat = torch.cat([grads[n].reshape(-1) for n in names])
+                update = adam_update(flat, state, group, corrections) * -self.group_learning_rate(group)
+                views = update.split([params[n].numel() for n in names])
+                torch._foreach_add_([params[n] for n in names], [v.view_as(params[n]) for v, n in zip(views, names)])
+            return
         for name, g in grads.items():
             update = adam_update(g, state, name, corrections)
             params[name].add_(update * -self.learning_rate(name))
@@ -153,9 +229,9 @@ def bias_corrections(count: int) -> tuple[float, float]:
 
 
 def adam_update(g: torch.Tensor, state: OptState, name: str, corrections: tuple) -> torch.Tensor:
-    """optax.scale_by_adam on one leaf: updates the moments ``state.mu[name]``
-    and ``state.nu[name]`` with the gradient ``g`` and returns the
-    normalized update (before the learning rate)."""
+    """optax.scale_by_adam on one leaf (or one group's flat vector): updates
+    the moments ``state.mu[name]`` and ``state.nu[name]`` with the gradient
+    ``g`` and returns the normalized update (before the learning rate)."""
     bc1, bc2 = corrections
     mu = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu[name]
     nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[name]
@@ -168,9 +244,11 @@ def make_optimizer(
     decoder_lr: float = 1e-4,
     gradient_clip_val: float = 10.0,
     accumulate_grad_batches: int = 4,
+    flat_groups: bool = False,
 ) -> Optimizer:
-    """The JAX package's ``make_optimizer`` defaults."""
-    return Optimizer(encoder_lr, decoder_lr, gradient_clip_val, accumulate_grad_batches)
+    """The JAX package's ``make_optimizer`` defaults; ``flat_groups`` as
+    there (``Optimizer``), off by default."""
+    return Optimizer(encoder_lr, decoder_lr, gradient_clip_val, accumulate_grad_batches, flat_groups)
 
 
 @dataclass

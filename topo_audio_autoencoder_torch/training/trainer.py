@@ -313,22 +313,23 @@ class Trainer:
 
     def _load_tree(self, tree: dict) -> None:
         """Copy a checkpoint's state into the live model and the live
-        ``OptState``; moments take their parameter's dtype and device (so
-        bfloat16 moments come back in the live dtype)."""
+        ``OptState``; moments take the live state's dtype and device (so
+        bfloat16 moments come back in the live dtype). A state saved in the
+        other optimizer layout (``flat_groups``) raises."""
         st = self.state
         params = dict(st.model.named_parameters())
         opt = tree["opt_state"]
+        live_opt = st.opt_state
         for what in ("mu", "nu"):
-            if set(opt[what]) != set(params):
-                raise KeyError(f"checkpoint {what} does not cover the model's parameters")
+            self.optimizer.check_layout(opt[what], params, f"checkpoint {what}")
         with torch.no_grad():
             st.model.load_state_dict(tree["params"])
 
-        def live(moments):
-            return {n: t.to(device=params[n].device, dtype=params[n].dtype) for n, t in moments.items()}
+        def live(moments, like):
+            return {n: t.to(device=like[n].device, dtype=like[n].dtype) for n, t in moments.items()}
 
-        live_opt = st.opt_state
-        live_opt.mu, live_opt.nu, live_opt.acc = live(opt["mu"]), live(opt["nu"]), live(opt["acc"])
+        live_opt.mu, live_opt.nu = live(opt["mu"], live_opt.mu), live(opt["nu"], live_opt.nu)
+        live_opt.acc = live(opt["acc"], params)
         live_opt.count, live_opt.mini_step = int(opt["count"]), int(opt["mini_step"])
         st.step = int(tree["step"])
         if self.mesh is not None:
