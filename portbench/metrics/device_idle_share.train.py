@@ -1,0 +1,7 @@
+"""Percent of the profiled train steps' window in which no device op ran."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_share(run)
