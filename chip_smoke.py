@@ -612,6 +612,17 @@ PROFILES = {"profiles": 0, "retried": [], "lost_events": []}
 PROFILE_PAD_S = 0.02
 
 
+def device_rows(prof) -> list:
+    """The key averages of ``prof`` that ran on the card: kernels, copies
+    and sets, without the device-side rows of ``record_function``
+    annotations (the port's ``taa.*`` spans), which are ranges and not
+    work."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
 def device_events(torch, fn, what: str, reps: int = 20) -> list:
     """The device events (torch.profiler's key averages) of ``reps`` calls
     of ``fn``, after one call outside the profile, in a window widened by
@@ -621,7 +632,6 @@ def device_events(torch, fn, what: str, reps: int = 20) -> list:
     some events (a kernel counted a number of times that is not a whole
     multiple of ``reps``) is recorded there too; ``per_call_ms`` then
     averages over the launches it kept."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -634,7 +644,7 @@ def device_events(torch, fn, what: str, reps: int = 20) -> list:
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        device = device_rows(prof)
         if any(e.self_device_time_total > 0 for e in device):
             counts = {e.key[:60]: e.count for e in device}
             if any(c % reps for c in counts.values()):
@@ -1045,7 +1055,6 @@ def phase_trace(torch, codec) -> None:
     """Where one decode of 8 clips spends device time (torch.profiler):
     device busy share, and the top ops by inclusive and kernels by self
     device time. Recorded, not checked."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     latent = codec.encode(make_clips(CLIPS, SEED))
@@ -1057,7 +1066,7 @@ def phase_trace(torch, codec) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = sorted(
-        (e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        (e for e in device_rows(prof) if e.self_device_time_total > 0),
         key=lambda e: -e.self_device_time_total,
     )
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1228,7 +1237,6 @@ def phase_train_trace(torch, state, step, batch, what="one flagship train step (
 def profile_call(torch, fn) -> tuple:
     """One call of ``fn`` under torch.profiler: (the wall, device time,
     launches and busy share; the aten ops and the kernels by device time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1239,7 +1247,7 @@ def profile_call(torch, fn) -> tuple:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = sorted(
-        (e for e in events if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        (e for e in device_rows(prof) if e.self_device_time_total > 0),
         key=lambda e: -e.self_device_time_total,
     )
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3

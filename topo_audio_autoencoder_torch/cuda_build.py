@@ -7,7 +7,9 @@ the flags, so an edited source or header is never served from a stale
 build. The library is loaded with ``ctypes``.
 Nothing is built when the package is imported: ``load`` builds on first
 use, and ``build`` compiles several sources at once, one ``nvcc`` process
-each, all started together.
+each, all started together. Each first ``load`` of a library is the set-up
+span ``taa.setup.kernel_load`` (``utils.profiling``), its build included;
+the counter ``kernel_builds`` counts the sources ``build`` compiles.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import time
 from functools import lru_cache
 from pathlib import Path
+
+from .utils.profiling import count, setup_span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -74,6 +78,7 @@ def build(names=KERNELS) -> dict:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         jobs[name] = (proc, tmp, target)
+    count("kernel_builds", len(jobs))
     report = {}
     failures = []
     for name, (proc, tmp, target) in jobs.items():
@@ -91,7 +96,8 @@ def build(names=KERNELS) -> dict:
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if missing."""
-    path = library_path(name)
-    if not path.exists():
-        build((name,))
-    return ctypes.CDLL(str(path))
+    with setup_span("taa.setup.kernel_load"):
+        path = library_path(name)
+        if not path.exists():
+            build((name,))
+        return ctypes.CDLL(str(path))

@@ -22,6 +22,9 @@ backward adds each input step's cotangents in a fixed order (an adjoint
 gather and a sum; a product with the [out, T] interpolation matrix):
 autograd's own backward of a gather adds them with atomics on the card, in
 an order that changes from run to run.
+
+The span ``taa.decoder.sccn`` (``utils.profiling``) covers the SCCN stack,
+all its layers as one span.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch import nn
 from ..ops.attention import fold_vmapped, fused_masked_attention
 from ..topology.builder import SimplicialOperators
 from ..topology.rectifier import index_adjoint
+from ..utils.profiling import span
 from .encoder import gelu, group_norm, layer_norm
 from .init import init_standard_module
 from .sccn import GradientSCCN, JumpingKnowledgeSCCN
@@ -280,7 +284,8 @@ class AudioDecoder(nn.Module):
         init_len = (
             self.initial_sequence_length if desired_length is None else desired_length // 16
         )
-        feats = self.sccn(list(embeddings), ops, train)
+        with span("taa.decoder.sccn"):
+            feats = self.sccn(list(embeddings), ops, train)
 
         # Vertex features -> query sequence
         vx = feats[0] * 0.1

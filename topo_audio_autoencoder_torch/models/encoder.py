@@ -21,6 +21,11 @@ and in eval.
   the global batch's shape and the rank keeps its rows: the fused samplers
   start their Philox stream at the rank's first element, the other draws
   cut the global ``torch.rand``. D ranks draw what one process draws.
+
+Spans (``utils.profiling``): ``taa.encoder.logits`` (conv stacks and
+MLP), ``taa.encoder.sample`` (the relaxation with its seed's draw; the
+hard path's Bernoulli draws), ``taa.encoder.rectify`` (each
+``enforce_constraints`` call) and ``taa.loss.contrastive`` (InfoNCE).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..topology.builder import SimplicialOperators, build_operators
 from ..topology.complexes import ComplexTables
 from ..topology.packed import build_packed_operators
 from ..topology.rectifier import RectifiedProbs, enforce_constraints
+from ..utils.profiling import span
 from .init import init_standard_module
 
 FLAX_NORM_EPS = 1e-6
@@ -298,21 +304,22 @@ class AudioEncoder(nn.Module):
         [B, 1024]), as ``generator`` would draw them."""
         noise0, noise1 = dropout_noise if dropout_noise is not None else (None, None)
         rate = self.dropout if train else 0.0
-        x = self.band_encoder.forward_ncw(bands.transpose(1, 2))  # [B, 16nb, T/8]
-        # Skip: max over adjacent channel pairs, 16nb -> 8nb channels.
-        b, c, t = x.shape
-        skip = x.reshape(b, c // 2, 2, t).amax(dim=2)
-        y = gelu(self.cross_norm0(self.cross0(x)))
-        y = gelu(self.cross_norm1(self.cross1(y)))
-        y = y + self.skip_weight * skip
-        y = gelu(self.red_norm0(self.red0(y)))
-        y = gelu(self.red_norm1(self.red1(y)))
-        y = gelu(self.red_norm2(self.red2(y)))  # [B, 8nb, frames]
-        # Flatten in the JAX package's channels-last order.
-        y = y.transpose(1, 2).reshape(b, -1)
-        y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator, noise0, shard)
-        y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator, noise1, shard)
-        return self.mlp2(y)  # [B, S_total]
+        with span("taa.encoder.logits"):
+            x = self.band_encoder.forward_ncw(bands.transpose(1, 2))  # [B, 16nb, T/8]
+            # Skip: max over adjacent channel pairs, 16nb -> 8nb channels.
+            b, c, t = x.shape
+            skip = x.reshape(b, c // 2, 2, t).amax(dim=2)
+            y = gelu(self.cross_norm0(self.cross0(x)))
+            y = gelu(self.cross_norm1(self.cross1(y)))
+            y = y + self.skip_weight * skip
+            y = gelu(self.red_norm0(self.red0(y)))
+            y = gelu(self.red_norm1(self.red1(y)))
+            y = gelu(self.red_norm2(self.red2(y)))  # [B, 8nb, frames]
+            # Flatten in the JAX package's channels-last order.
+            y = y.transpose(1, 2).reshape(b, -1)
+            y = dropout(gelu(self.mlp_norm0(self.mlp0(y))), rate, generator, noise0, shard)
+            y = dropout(gelu(self.mlp_norm1(self.mlp1(y))), rate, generator, noise1, shard)
+            return self.mlp2(y)  # [B, S_total]
 
     def embed(self, probs: RectifiedProbs, idx=(None,) * 4) -> tuple:
         """Masked-static embeddings LN(table_r) * prob_r per rank; a packed
@@ -404,12 +411,16 @@ class AudioEncoder(nn.Module):
             [logits[..., :v] + F.relu(self.vertex_bias), logits[..., v:]], dim=-1
         )
         stretch = self._hc_stretch(biased.dtype) if self.learned_hc else None
-        probs_all = self._relax(biased, temperature, train, generator, noise, stretch, shard)
-        rect = enforce_constraints(*self.tables.split(probs_all), self.tables)
+        with span("taa.encoder.sample"):
+            probs_all = self._relax(biased, temperature, train, generator, noise, stretch, shard)
+        with span("taa.encoder.rectify"):
+            rect = enforce_constraints(*self.tables.split(probs_all), self.tables)
         if self.hard:
             draw = hard_generator if hard_generator is not None else generator
-            hard_ranks = self._hard_ranks(rect, draw, hard_noise, shard)
-            rect2 = enforce_constraints(*hard_ranks, self.tables)
+            with span("taa.encoder.sample"):
+                hard_ranks = self._hard_ranks(rect, draw, hard_noise, shard)
+            with span("taa.encoder.rectify"):
+                rect2 = enforce_constraints(*hard_ranks, self.tables)
             out_ranks = RectifiedProbs(*(
                 straight_through(h, l) for h, l in zip(rect2.ranks, self.tables.split(biased))
             ))
@@ -457,12 +468,13 @@ class AudioEncoder(nn.Module):
 def info_nce_loss(logits: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:
     """InfoNCE over simplex-logit rows. logits: [B, G, S], row 0 = anchor,
     1 = positive, 2: = negatives; cross-entropy with label 0."""
-    norm = logits / (torch.linalg.vector_norm(logits, dim=-1, keepdim=True) + 1e-12)
-    anchor, positive, negatives = norm[:, 0], norm[:, 1], norm[:, 2:]
-    pos = torch.einsum("bs,bs->b", anchor, positive)[:, None]  # [B, 1]
-    neg = torch.einsum("bs,bks->bk", anchor, negatives)  # [B, K]
-    scores = torch.cat([pos, neg], dim=1) / temperature
-    return (torch.logsumexp(scores, dim=1) - scores[:, 0]).mean()
+    with span("taa.loss.contrastive"):
+        norm = logits / (torch.linalg.vector_norm(logits, dim=-1, keepdim=True) + 1e-12)
+        anchor, positive, negatives = norm[:, 0], norm[:, 1], norm[:, 2:]
+        pos = torch.einsum("bs,bs->b", anchor, positive)[:, None]  # [B, 1]
+        neg = torch.einsum("bs,bks->bk", anchor, negatives)  # [B, K]
+        scores = torch.cat([pos, neg], dim=1) / temperature
+        return (torch.logsumexp(scores, dim=1) - scores[:, 0]).mean()
 
 
 def triplet_loss(logits: torch.Tensor, margin: float = 1.0) -> torch.Tensor:

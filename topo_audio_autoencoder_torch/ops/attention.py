@@ -23,6 +23,12 @@ the forward's split over keys, summing the splits' partial dq in split
 order in a merge kernel; ``attention_bwd_split_plain`` does that dq
 arithmetic in torch, for the tests. ``MaskedAttention`` ties the two into
 one autograd Function, the same on both devices.
+
+The spans ``taa.attention.fwd`` (round ``fused_masked_attention``) and
+``taa.attention.bwd`` (round ``MaskedAttention.backward``) name the
+attention layer's forward and backward in a profile, whatever implements
+them: a later implementation keeps these two spans round what replaces
+the kernels, so a measurement of the layer keeps reading it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import math
 from functools import lru_cache
 
 import torch
+
+from ..utils.profiling import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (2, 4, 8, 16, 32)
@@ -406,10 +414,11 @@ class MaskedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        query, keys, values, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(
-            query, keys, values, key_mask, out, lse, dout.contiguous(), ctx.num_heads
-        )
+        with span("taa.attention.bwd", device=True):
+            query, keys, values, key_mask, out, lse = ctx.saved_tensors
+            dq, dk, dv = attention_bwd(
+                query, keys, values, key_mask, out, lse, dout.contiguous(), ctx.num_heads
+            )
         return dq, dk, dv, None, None
 
 
@@ -420,4 +429,5 @@ def fused_masked_attention(query, keys, values, key_mask, num_heads):
     Returns [B, Q, C]. C = num_heads * head_dim. Differentiable in query,
     keys and values through ``MaskedAttention``.
     """
-    return MaskedAttention.apply(query, keys, values, key_mask, num_heads)[0]
+    with span("taa.attention.fwd", device=True):
+        return MaskedAttention.apply(query, keys, values, key_mask, num_heads)[0]

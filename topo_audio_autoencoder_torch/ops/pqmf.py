@@ -13,6 +13,11 @@ end-to-end reconstruction error, cosine-modulated into M bands,
 Compute: analysis is one strided conv [B,1,T] -> [B,M,T/M] after the
 asymmetric zero padding (pad, pad-(M-1)); synthesis is its exact adjoint (a
 strided transposed conv, cropped) scaled by M.
+
+Spans (``utils.profiling``): ``taa.pqmf.analysis`` and
+``taa.pqmf.synthesis`` round each call of the filterbank; the design's
+search is the set-up span ``taa.setup.pqmf_design``, once per process and
+(attenuation, M).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch.nn.functional as F
 from scipy import signal as sps
 from scipy.optimize import minimize_scalar
 from torch import nn
+
+from ..utils.profiling import setup_span, span
 
 
 def _kaiser_prototype(cutoff: float, attenuation: float, n_band: int) -> np.ndarray:
@@ -106,7 +113,8 @@ def design_prototype(attenuation: float, n_band: int) -> tuple[np.ndarray, float
 def _design_cached(attenuation: float, n_band: int):
     """The cutoff search costs host time per (attenuation, M): cache it
     per process so repeated model creation is free."""
-    return design_prototype(attenuation, n_band)
+    with setup_span("taa.setup.pqmf_design"):
+        return design_prototype(attenuation, n_band)
 
 
 class PQMF(nn.Module):
@@ -141,13 +149,15 @@ class PQMF(nn.Module):
         """Analysis. x: [B, 1, T] -> [B, M, T/M]."""
         m, n = self.n_band, self.taps
         pad = n // 2
-        w = self.filters.to(x.dtype)
-        return F.conv1d(F.pad(x, (pad, pad - (m - 1))), w, stride=m)
+        with span("taa.pqmf.analysis"):
+            w = self.filters.to(x.dtype)
+            return F.conv1d(F.pad(x, (pad, pad - (m - 1))), w, stride=m)
 
     def inverse(self, z: torch.Tensor) -> torch.Tensor:
         """Synthesis: M * adjoint(analysis). z: [B, M, T/M] -> [B, 1, T]."""
         m, n = self.n_band, self.taps
         pad = n // 2
         t = z.shape[-1] * m
-        y = F.conv_transpose1d(z, self.filters.to(z.dtype), stride=m)
-        return y[..., pad : pad + t] * float(m)
+        with span("taa.pqmf.synthesis"):
+            y = F.conv_transpose1d(z, self.filters.to(z.dtype), stride=m)
+            return y[..., pad : pad + t] * float(m)

@@ -2,7 +2,8 @@
 
 Port of ``topo_audio_autoencoder_tpu.training.losses``. An invalid sample
 (no active vertex) contributes the fixed ``invalid_state_penalty`` in place
-of its reconstruction loss, through a per-sample ``where``.
+of its reconstruction loss, through a per-sample ``where``. The span
+``taa.loss.spectral`` (``utils.profiling``) covers ``autoencoder_loss``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.stft import DEFAULT_SCALES, spectral_distance
+from ..utils.profiling import span
 
 
 class LossWeights(NamedTuple):
@@ -41,32 +43,33 @@ def autoencoder_loss(
     ``with_per_sample`` adds the [B] per-sample total under
     ``components["per_sample"]``.
     """
-    spec = spectral_distance(recon[:, 0, :], target[:, 0, :], scales, method=stft_method)  # [B]
-    per_sample = (
-        spec
-        + weights.binary_entropy_penalty * aux["binary_entropy"]
-        + weights.complexity_penalty * aux["diversity"]
-    )
-    if weights.l0_penalty and "l0" in aux:
-        per_sample = per_sample + weights.l0_penalty * aux["l0"]
-    per_sample = torch.where(
-        valid, per_sample, torch.full_like(per_sample, weights.invalid_state_penalty)
-    )
-    total = per_sample.mean()
+    with span("taa.loss.spectral"):
+        spec = spectral_distance(recon[:, 0, :], target[:, 0, :], scales, method=stft_method)  # [B]
+        per_sample = (
+            spec
+            + weights.binary_entropy_penalty * aux["binary_entropy"]
+            + weights.complexity_penalty * aux["diversity"]
+        )
+        if weights.l0_penalty and "l0" in aux:
+            per_sample = per_sample + weights.l0_penalty * aux["l0"]
+        per_sample = torch.where(
+            valid, per_sample, torch.full_like(per_sample, weights.invalid_state_penalty)
+        )
+        total = per_sample.mean()
 
-    validf = valid.to(spec.dtype)
-    components = {
-        "spectral_loss": torch.where(valid, spec, torch.zeros_like(spec)).mean(),
-        "binary_entropy_loss": aux["binary_entropy"].mean(),
-        "diversity_loss": aux["diversity"].mean(),
-        "invalid_fraction": 1.0 - validf.mean(),
-    }
-    if "l0" in aux:
-        components["l0_loss"] = aux["l0"].mean()
-    if contrastive is not None:
-        total = total + weights.contrastive_weight * contrastive
-        components["contrastive_loss"] = contrastive
-    components["total_loss"] = total
-    if with_per_sample:
-        components["per_sample"] = per_sample
-    return total, components
+        validf = valid.to(spec.dtype)
+        components = {
+            "spectral_loss": torch.where(valid, spec, torch.zeros_like(spec)).mean(),
+            "binary_entropy_loss": aux["binary_entropy"].mean(),
+            "diversity_loss": aux["diversity"].mean(),
+            "invalid_fraction": 1.0 - validf.mean(),
+        }
+        if "l0" in aux:
+            components["l0_loss"] = aux["l0"].mean()
+        if contrastive is not None:
+            total = total + weights.contrastive_weight * contrastive
+            components["contrastive_loss"] = contrastive
+        components["total_loss"] = total
+        if with_per_sample:
+            components["per_sample"] = per_sample
+        return total, components

@@ -48,6 +48,13 @@ step, the corpus-indexed step and the scanned steps.
 
 Unlike the JAX package's pure functions, the step updates the model's
 parameters and the optimizer state in place and returns the same state.
+
+Spans (``utils.profiling.span``, recorded only under ``torch.profiler``):
+``taa.train.step`` is the root of each step; inside it ``taa.train.cast``,
+``taa.train.forward``, ``taa.train.backward`` (autograd and the fp32
+gradients) and ``taa.train.optimizer`` (with ``taa.optimizer.clip`` and
+``taa.optimizer.adam``); ``taa.train.gather`` is the indexed steps' batch
+gather, before the step.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..models.autoencoder import AudioAutoencoder
 from ..models.encoder import info_nce_loss, rank_diversity_entropy, vertex_count_penalty
 from ..ops.samplers import temperature_schedule
 from ..parallel import mean_over_ranks, row_shard, shard_batch
+from ..utils.profiling import span
 from .losses import LossWeights, autoencoder_loss
 
 
@@ -186,7 +194,7 @@ class Optimizer:
         """Take one micro-step's gradients; on every k-th call apply the
         clipped mean gradient to ``model``'s parameters in place. Returns
         whether the parameters changed."""
-        with torch.no_grad():
+        with span("taa.train.optimizer"), torch.no_grad():
             if self.every_k > 1:
                 n = state.mini_step
                 if n == 0:
@@ -203,23 +211,26 @@ class Optimizer:
         return True
 
     def _clip(self, grads: dict) -> dict:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        keep = norm < self.max_norm
-        return {k: torch.where(keep, g, (g / norm) * self.max_norm) for k, g in grads.items()}
+        with span("taa.optimizer.clip"):
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            keep = norm < self.max_norm
+            return {k: torch.where(keep, g, (g / norm) * self.max_norm) for k, g in grads.items()}
 
     def _apply(self, grads: dict, state: OptState, params: dict) -> None:
-        state.count += 1
-        corrections = bias_corrections(state.count)
-        if self.flat_groups:
-            for group, names in self.groups(params).items():
-                flat = torch.cat([grads[n].reshape(-1) for n in names])
-                update = adam_update(flat, state, group, corrections) * -self.group_learning_rate(group)
-                views = update.split([params[n].numel() for n in names])
-                torch._foreach_add_([params[n] for n in names], [v.view_as(params[n]) for v, n in zip(views, names)])
-            return
-        for name, g in grads.items():
-            update = adam_update(g, state, name, corrections)
-            params[name].add_(update * -self.learning_rate(name))
+        with span("taa.optimizer.adam"):
+            state.count += 1
+            corrections = bias_corrections(state.count)
+            if self.flat_groups:
+                for group, names in self.groups(params).items():
+                    flat = torch.cat([grads[n].reshape(-1) for n in names])
+                    update = adam_update(flat, state, group, corrections) * -self.group_learning_rate(group)
+                    views = update.split([params[n].numel() for n in names])
+                    torch._foreach_add_([params[n] for n in names],
+                                        [v.view_as(params[n]) for v, n in zip(views, names)])
+                return
+            for name, g in grads.items():
+                update = adam_update(g, state, name, corrections)
+                params[name].add_(update * -self.learning_rate(name))
 
 
 def bias_corrections(count: int) -> tuple[float, float]:
@@ -356,16 +367,19 @@ def make_loss_and_grads(
         if hard_noise is not None:
             hard_noise = [torch.as_tensor(u, device=device) for u in hard_noise]
         sample_gen, dropout_gen = step_generators(seed, step, device)
-        cast = {f"model.{n}": p.to(compute_dtype) for n, p in params.items()}
-        total, components = torch.func.functional_call(
-            objective, cast,
-            (batch, float(temperature), compute_dtype, sample_gen, dropout_gen, noise, hard_noise, shard),
-        )
-        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
-        grads = {
-            n: torch.zeros_like(p) if gr is None else gr.to(torch.float32)
-            for (n, p), gr in zip(params.items(), grads)
-        }
+        with span("taa.train.cast"):
+            cast = {f"model.{n}": p.to(compute_dtype) for n, p in params.items()}
+        with span("taa.train.forward"):
+            total, components = torch.func.functional_call(
+                objective, cast,
+                (batch, float(temperature), compute_dtype, sample_gen, dropout_gen, noise, hard_noise, shard),
+            )
+        with span("taa.train.backward"):
+            grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+            grads = {
+                n: torch.zeros_like(p) if gr is None else gr.to(torch.float32)
+                for (n, p), gr in zip(params.items(), grads)
+            }
         components = {k: v.detach() for k, v in components.items()}
         if mesh is not None:
             grads = dict(zip(grads, mean_over_ranks(list(grads.values()), mesh)))
@@ -401,12 +415,13 @@ def make_train_step(
     def train_step(state: TrainState, batch, temperature, seed: int, noise=None, hard_noise=None):
         if state.model is not model:
             raise ValueError("the state's model is not the one this step was made for")
-        _, components, grads = loss_and_grads(batch, temperature, seed, state.step, noise, hard_noise)
-        optimizer.update(grads, state.opt_state, model)
-        metrics = dict(components)
-        if with_grad_norms:
-            metrics["grad_norms"] = component_grad_norms(grads)
-        state.step += 1
+        with span("taa.train.step"):
+            _, components, grads = loss_and_grads(batch, temperature, seed, state.step, noise, hard_noise)
+            optimizer.update(grads, state.opt_state, model)
+            metrics = dict(components)
+            if with_grad_norms:
+                metrics["grad_norms"] = component_grad_norms(grads)
+            state.step += 1
         return state, metrics
 
     return train_step
@@ -521,7 +536,9 @@ def make_indexed_train_step(
             return gather_batch(corpus, shard_batch(idxs, mesh))
 
     def indexed_step(state: TrainState, idxs, temperature, seed: int):
-        return base(state, gather(corpus_dev, idxs), temperature, seed)
+        with span("taa.train.gather"):
+            batch = gather(corpus_dev, idxs)
+        return base(state, batch, temperature, seed)
 
     return indexed_step
 

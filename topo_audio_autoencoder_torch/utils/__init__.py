@@ -1,6 +1,8 @@
 """Utilities: profiling, debug instrumentation.
 
-Port of ``topo_audio_autoencoder_tpu.utils``, with the same public names."""
+Port of ``topo_audio_autoencoder_tpu.utils``, with the same public names,
+and the port's spans and counters (``span``, ``setup_span``, ``count``,
+``span_summary``, ``reset_spans``)."""
 
 from .debug import (
     assert_finite_tree,
@@ -9,7 +11,18 @@ from .debug import (
     finite_or_zero,
     golden_precision,
 )
-from .profiling import chain_time, fetch_scalar, time_fn, trace, wait_for_backend
+from .profiling import (
+    chain_time,
+    count,
+    fetch_scalar,
+    reset_spans,
+    setup_span,
+    span,
+    span_summary,
+    time_fn,
+    trace,
+    wait_for_backend,
+)
 
 __all__ = [
     "assert_finite_tree",
@@ -22,4 +35,9 @@ __all__ = [
     "time_fn",
     "trace",
     "wait_for_backend",
+    "span",
+    "setup_span",
+    "count",
+    "span_summary",
+    "reset_spans",
 ]

@@ -6,15 +6,36 @@ imports torch.profiler but never invokes it (SURVEY §5.1). Here:
 present) written as a Chrome trace, and step timers whose completion is
 forced by a one-element read, timed with CUDA events when the work runs
 on the card.
+
+Spans and counters name the port's layers from the inside. ``span(name)``
+marks one call of a layer (``taa.train.forward``, ``taa.attention.fwd``,
+...); it is off, one shared no-op context, unless a ``torch.profiler``
+session is active. While one is, a span enters
+``torch.profiler.record_function(name)``, so the layer's name lies in the
+same trace as its kernels, and records its host interval
+(``perf_counter_ns``) and its parent span; a span opened with
+``device=True`` (the attention layer's two) also records a pair of CUDA
+events on the current stream once CUDA is initialised. The records keep
+the newest MAX_RECORDS spans.
+``setup_span(name)`` records set-up work (the PQMF design, the kernels'
+load) whether or not a profiler runs, in records of its own.
+``count(name, n)`` adds to a named counter. ``span_summary()`` sums the
+records by name and ``reset_spans()`` clears them; ``trace()`` resets them
+on entry and writes the summary as ``spans.json`` beside ``trace.json``.
+No span opens inside a loop over parameter leaves or layers: a train step
+holds about 20.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from collections import Counter, deque
 from pathlib import Path
 
 import numpy as np
@@ -22,12 +43,167 @@ import torch
 import torch.utils._pytree as pytree
 
 
+SPAN_PREFIX = "taa."
+MAX_RECORDS = 4096  # about 200 train steps of spans
+
+# Whether a torch.profiler session is active on this thread (autograd's
+# threads inherit the caller's profiler state).
+_profiler_enabled = torch._C._autograd._profiler_enabled
+# The id of the backward this thread runs for autograd's engine, -1 outside one.
+_graph_task_id = torch._C._current_graph_task_id
+_OFF = contextlib.nullcontext()
+_lock = threading.Lock()  # guards the records, the open spans and the counters
+_records: deque = deque(maxlen=MAX_RECORDS)  # the newest spans entered under a profiler, in entry order
+_setup_records: list = []  # the set-up spans since the last reset
+_counters: Counter = Counter()
+_open: list = []  # the spans open now, over every thread, in entry order
+_local = threading.local()  # .stack: this thread's open spans
+
+
+class _Record:
+    __slots__ = ("name", "parent", "start_ns", "end_ns", "events")
+
+    def __init__(self, name: str):
+        self.name, self.parent, self.start_ns, self.end_ns, self.events = name, None, 0, None, None
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    """One entry of a layer: the annotation (``annotate``), the host
+    interval and, with ``device``, a CUDA event pair on the current stream;
+    kept in ``records``."""
+
+    __slots__ = ("record", "annotation", "device", "records")
+
+    def __init__(self, name: str, annotate: bool, device: bool, records):
+        if not name.startswith(SPAN_PREFIX):
+            raise ValueError(f"span names start with {SPAN_PREFIX!r}, not {name!r}")
+        self.record = _Record(name)
+        self.annotation = torch.profiler.record_function(name) if annotate else None
+        self.device, self.records = device, records
+
+    def __enter__(self):
+        rec, stack = self.record, _stack()
+        with _lock:
+            if stack:
+                rec.parent = stack[-1]
+            elif _open and _graph_task_id() >= 0:
+                # A backward on autograd's own thread sits in the innermost
+                # span open on any thread: the caller's, blocked in it.
+                rec.parent = _open[-1]
+            _open.append(rec)
+            self.records.append(rec)
+        stack.append(rec)
+        if self.annotation is not None:
+            self.annotation.__enter__()
+        if self.device:
+            rec.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        rec.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.record
+        rec.end_ns = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        _stack().remove(rec)
+        with _lock:
+            _open.remove(rec)
+        return False
+
+
+def span(name: str, *, device: bool = False):
+    """A context marking one call of a layer. Off (one shared no-op
+    context, no ``record_function``) unless a ``torch.profiler`` session is
+    active; while one is, it annotates the trace and records the span,
+    with ``device`` its CUDA event pair too."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, annotate=True, device=device and torch.cuda.is_initialized(), records=_records)
+
+
+def setup_span(name: str):
+    """A span for set-up work, recorded whether or not a profiler is
+    active (annotated only while one is). It takes no device events."""
+    return _Span(name, annotate=_profiler_enabled(), device=False, records=_setup_records)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counters[name] += n
+
+
+def reset_spans() -> None:
+    """Clear the recorded spans and the counters."""
+    with _lock:
+        _records.clear()
+        _setup_records.clear()
+        _counters.clear()
+
+
+def _covered_ns(rec, children) -> int:
+    """Nanoseconds of ``rec``'s interval that its children's intervals
+    cover (their union, clipped to it)."""
+    covered, reach = 0, rec.start_ns
+    for start, end in sorted((max(c.start_ns, rec.start_ns), min(c.end_ns, rec.end_ns)) for c in children):
+        start = max(start, reach)
+        if end > start:
+            covered += end - start
+            reach = end
+    return covered
+
+
+def span_summary() -> dict:
+    """``{"spans": {name: {count, host_s, self_host_s, device_s, parent}},
+    "counters": {name: n}}`` over the closed spans recorded since the last
+    reset (of those entered under a profiler, the newest MAX_RECORDS).
+    ``host_s`` is inclusive; ``self_host_s`` leaves out the time the span's
+    children cover; ``device_s`` sums the CUDA event pairs (waiting for
+    them) and is None where no span of the name had events; ``parent`` is
+    the name most of its spans sat in (None at the root)."""
+    with _lock:
+        closed = [r for r in (*_setup_records, *_records) if r.end_ns is not None]
+        counters = dict(_counters)
+    children: dict = {}
+    for rec in closed:
+        if rec.parent is not None:
+            children.setdefault(id(rec.parent), []).append(rec)
+    spans: dict = {}
+    parents: dict = {}
+    for rec in closed:
+        entry = spans.setdefault(rec.name, {"count": 0, "host_s": 0.0, "self_host_s": 0.0, "device_s": None})
+        inclusive = rec.end_ns - rec.start_ns
+        entry["count"] += 1
+        entry["host_s"] += inclusive * 1e-9
+        entry["self_host_s"] += (inclusive - _covered_ns(rec, children.get(id(rec), ()))) * 1e-9
+        if rec.events is not None:
+            start, end = rec.events
+            end.synchronize()
+            entry["device_s"] = (entry["device_s"] or 0.0) + start.elapsed_time(end) * 1e-3
+        parents.setdefault(rec.name, Counter())[rec.parent.name if rec.parent is not None else None] += 1
+    for name, entry in spans.items():
+        entry["parent"] = parents[name].most_common(1)[0][0]
+    return {"spans": spans, "counters": counters}
+
+
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
     """Capture a torch.profiler trace (CPU, and CUDA when a card is
     present) and write it to ``<log_dir>/trace.json`` (Chrome trace format,
-    viewable in Perfetto) on exit. ``log_dir`` defaults to a new temporary
-    directory; yields it."""
+    viewable in Perfetto) on exit, with the spans recorded inside
+    (``span_summary``) as ``<log_dir>/spans.json``. The span records are
+    reset on entry. ``log_dir`` defaults to a new temporary directory;
+    yields it."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = Path(log_dir) if log_dir is not None else Path(tempfile.mkdtemp(prefix="torch_trace_"))
@@ -35,11 +211,13 @@ def trace(log_dir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    reset_spans()
     with profile(activities=activities) as prof:
         yield str(log_dir)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(str(log_dir / "trace.json"))
+    (log_dir / "spans.json").write_text(json.dumps(span_summary(), indent=1, sort_keys=True))
 
 
 def _tensors(out) -> list:
