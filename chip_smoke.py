@@ -174,10 +174,14 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             deterministic) against two single-combo steps of the port on
             the same weights and uniforms, at train_parity's bounds.
    flat_adam  make_optimizer(flat_groups=True) against the per-leaf
-            optimizer on the flagship's parameters, the same gradients for
-            3 updates (accumulation 1 and 4, one update clipped):
-            parameters and moments bit for bit; each applied update's
-            launches and device ms (torch.profiler), both layouts.
+            optimizer, both through the multi-tensor clip + Adam kernels,
+            and the per-leaf optimizer on the plain path, on the flagship's
+            parameters, the same gradients for 3 updates (accumulation 1
+            and 4, one update clipped): the layouts' parameters and moments
+            bit for bit, the kernels' bit for bit against the plain path's
+            before the clip and within a stated bound from it; each applied
+            update's launches and device ms (torch.profiler), all three;
+            one update's ms (CUDA events), kernels and plain path.
    examples  examples/torch_train_synthetic.py (32 clips, 1 epoch, its
             bf16 B = 16 settings) and examples/torch_codec_roundtrip.py
             (fresh n=20 weights: 775 wire bytes; --packed from an n=32
@@ -210,8 +214,9 @@ the kernels are built for sm_90a). Phases, one JSON line each:
 30. kernels  one line per kernel: route, source, launches (rows 1 and 2:
             trainer_main's first run + the codec CLI's runs + the tuner's
             run + dp1's data-parallel run + dp2's two ranks + the examples;
-            row 3 and 3's backward: trainer_main's first run + dp1's +
-            dp2's + the train example's; the others
+            row 3 and 3's backward, and the multi-tensor Adam (it replaces
+            no TPU kernel): trainer_main's first run + dp1's + dp2's + the
+            train example's; the others
             their train step; combine_diag's ladder for rows 8-10), error,
             times (at its train step's shape; the ladder's for rows 8-10).
             The samplers' backward kernels stand in the line under the JAX
@@ -223,6 +228,7 @@ check exits non-zero before the last line. Without a card it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -433,6 +439,15 @@ JK_STEPS = 3
 # negative (G = 3), at epoch 1 of the curriculum.
 # flat_adam: applied updates per accumulation setting.
 FLAT_ADAM_UPDATES = 3
+# The multi-tensor clip + Adam against the plain path where the clip engages:
+# the norm is summed in another order (~1e-6 apart in fp32); a moment within
+# this share of its leaf's largest, a parameter beyond one fp32 spacing at its
+# own magnitude (its sum's rounding) within this share of its leaf's largest
+# change (tests/test_torch_kernels.py's ADAM_CLIP_RTOL).
+ADAM_CLIP_RTOL = 1e-4
+# Its bytes an element: the norm reads the gradient, the update reads the
+# gradient, the parameter and two moments and writes the last three.
+ADAM_BYTES_PER_ELEMENT = 4 + 7 * 4
 # examples: torch_train_synthetic's clips (B = 16: 2 steps), the n=20 wire.
 EXAMPLE_CLIPS = 32
 EXAMPLE_WIRE_BYTES = 775
@@ -3787,38 +3802,63 @@ def phase_packed_repeat(torch, port, training, counters) -> None:
               f"packed_repeat: {name} launched {a['launches'][name]} times in {len(batches)} steps")
 
 
-def phase_flat_adam(torch, port) -> None:
-    """make_optimizer(flat_groups=True) against the per-leaf optimizer on
-    the flagship's parameters: the same gradients (seeded normals on the
-    card; one update's micro-steps 1e5 times larger, so that its clip
-    fires) through both for FLAT_ADAM_UPDATES updates, with accumulation 1
-    and 4. Parameters and moments equal bit for bit; each applied update's
-    kernel launches and device ms (torch.profiler) for both layouts,
-    recorded, not claimed."""
+def phase_flat_adam(torch, port) -> dict:
+    """make_optimizer(flat_groups=True) against the per-leaf optimizer, both
+    through the multi-tensor clip + Adam kernels, and the per-leaf
+    optimizer on the plain path (ops.multi_tensor_adam.clip_adam_plain, the
+    update as it was before the kernels), on the flagship's parameters: the
+    same gradients (seeded normals on the card; one update's micro-steps
+    1e5 times larger, so that its clip fires) through the three for
+    FLAT_ADAM_UPDATES updates, with accumulation 1 and 4. The two layouts'
+    parameters and moments equal bit for bit; the kernels' equal the plain
+    path's bit for bit before the clipped update and within ADAM_CLIP_RTOL
+    from it (the norm's order of summation); each applied update's kernel
+    launches and device ms (torch.profiler) for the three, recorded; then
+    one update's ms (CUDA events) through the kernels and the plain path,
+    beside the kernels' bound. Returns the kernels' result for the kernels
+    line."""
+    from unittest import mock
+
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+    from topo_audio_autoencoder_torch.training import train_step as ts
+
     record = {}
     model = port.AudioAutoencoder.create(**FLAGSHIP, num_samples=NUM_SAMPLES, seed=SEED + 70, device=DEVICE)
-    models = [model, copy.deepcopy(model)]  # equal bit for bit after each accumulation setting, or the run fails
+    # per leaf and flat through the kernels (equal bit for bit after each
+    # accumulation setting, or the run fails), per leaf on the plain path
+    # (set to the kernels' parameters before each setting)
+    models = [model, copy.deepcopy(model), copy.deepcopy(model)]
+    layouts = ("per_leaf", "flat", "plain")
+    worst = 0.0
     for accumulate in (1, 4):
-        opts = [port.make_optimizer(accumulate_grad_batches=accumulate, flat_groups=flat) for flat in (False, True)]
+        models[2].load_state_dict(models[0].state_dict())
+        start = {n: p.detach().clone() for n, p in models[0].named_parameters()}
+        opts = [port.make_optimizer(accumulate_grad_batches=accumulate, flat_groups=flat)
+                for flat in (False, True, False)]
         states = [opt.init(m) for opt, m in zip(opts, models)]
         gen = torch.Generator(device=DEVICE).manual_seed(SEED + 71)
-        per_update = {"per_leaf": [], "flat": []}
-        norms = []
+        per_update = {layout: [] for layout in layouts}
+        norms, plain_gaps = [], []
         for i in range(FLAT_ADAM_UPDATES * accumulate):
             scale = 1e2 if i // accumulate == 1 else 1e-3
             grads = {n: torch.randn(p.shape, generator=gen, device=DEVICE) * scale
                      for n, p in models[0].named_parameters()}
             norms.append(float(torch.sqrt(sum((g * g).sum() for g in grads.values()))))
-            for layout, opt, state, model in zip(per_update, opts, states, models):
+            for layout, opt, state, m in zip(layouts, opts, states, models):
                 given = {n: g.clone() for n, g in grads.items()}
-                if i % accumulate == accumulate - 1:
-                    fields, _, _ = profile_call(torch, lambda: opt.update(given, state, model))
-                    per_update[layout].append({k: fields[k] for k in ("device_ms", "kernel_launches",
-                                                                      "wall_ms_profiled")})
-                else:
-                    opt.update(given, state, model)
+                with (mock.patch.object(ts, "multi_tensor_clip_adam", mta.clip_adam_plain) if layout == "plain"
+                      else contextlib.nullcontext()):
+                    if i % accumulate == accumulate - 1:
+                        before = mta.multi_tensor_clip_adam.launches
+                        fields, _, _ = profile_call(torch, padded(torch, lambda: opt.update(given, state, m)))
+                        per_update[layout].append({**{k: fields[k] for k in ("device_ms", "kernel_launches")},
+                                                   "wrapper_launches": mta.multi_tensor_clip_adam.launches - before})
+                    else:
+                        opt.update(given, state, m)
+            if i % accumulate == accumulate - 1:
+                plain_gaps.append(optimizer_gap(torch, models[0], models[2], states[0], states[2], start))
         torch.cuda.synchronize()
-        per_leaf, flat = states
+        per_leaf, flat, plain = states
         params_differ = [n for (n, p), q in zip(models[0].named_parameters(), models[1].parameters())
                          if not torch.equal(p, q)]
         groups = opts[1].groups(dict(models[0].named_parameters()))
@@ -3826,16 +3866,75 @@ def phase_flat_adam(torch, port) -> None:
                           if not torch.equal(getattr(flat, what)[g],
                                              torch.cat([getattr(per_leaf, what)[n].reshape(-1) for n in names]))]
         record[accumulate] = dict(updates=per_update, grad_norms=norms, params_differ=params_differ[:10],
-                                  moments_differ=moments_differ, count=(per_leaf.count, flat.count))
+                                  moments_differ=moments_differ, count=(per_leaf.count, flat.count, plain.count),
+                                  kernels_against_plain=plain_gaps)
         check(not params_differ and not moments_differ,
               f"flat_adam (accumulation {accumulate}): parameters {params_differ[:5]} or moments "
               f"{moments_differ} differ")
-        check(per_leaf.count == flat.count == FLAT_ADAM_UPDATES and max(norms) > opts[0].max_norm > min(norms),
-              f"flat_adam: counts {per_leaf.count}, {flat.count}; norms {min(norms)}-{max(norms)}")
+        check(per_leaf.count == flat.count == plain.count == FLAT_ADAM_UPDATES
+              and max(norms) > opts[0].max_norm > min(norms),
+              f"flat_adam: counts {per_leaf.count}, {flat.count}, {plain.count}; norms {min(norms)}-{max(norms)}")
+        check(plain_gaps[0]["leaves_differ"] == 0,
+              f"flat_adam (accumulation {accumulate}): the kernels' first update differs from the plain path's "
+              f"in {plain_gaps[0]['leaves_differ']} leaves")
+        check(all(g["worst"] <= ADAM_CLIP_RTOL for g in plain_gaps),
+              f"flat_adam (accumulation {accumulate}): the kernels against the plain path {plain_gaps}")
+        check(all(u["wrapper_launches"] == 2 for layout in ("per_leaf", "flat")
+                  for u in per_update[layout]) and all(u["wrapper_launches"] == 0 for u in per_update["plain"]),
+              f"flat_adam: launches an update {per_update}")
+        worst = max(worst, *(g["worst"] for g in plain_gaps))
         del opts, states
+    # One update's ms by events at accumulation 1, kernels and plain path.
+    opt = port.make_optimizer(accumulate_grad_batches=1)
+    state = opt.init(models[0])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 72)
+    grads = {n: torch.randn(p.shape, generator=gen, device=DEVICE) * 1e-3 for n, p in models[0].named_parameters()}
+    ms = time_ms(lambda: opt.update(grads, state, models[0]))
+    with mock.patch.object(ts, "multi_tensor_clip_adam", mta.clip_adam_plain):
+        plain_ms = time_ms(lambda: opt.update(grads, state, models[0]), reps=10, warmup=2)
+    elements = sum(p.numel() for p in models[0].parameters())
+    bound_ms = elements * ADAM_BYTES_PER_ELEMENT / HBM_BPS * 1e3
+    result = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                  library_ms=None)
     emit("flat_adam", config=FLAGSHIP, leaves=len(groups["encoder"]) + len(groups["decoder"]),
-         groups={g: len(n) for g, n in groups.items()}, updates=FLAT_ADAM_UPDATES,
-         runs={f"accumulate_{k}": v for k, v in record.items()})
+         groups={g: len(n) for g, n in groups.items()}, updates=FLAT_ADAM_UPDATES, elements=elements,
+         runs={f"accumulate_{k}": v for k, v in record.items()}, clip_rtol=ADAM_CLIP_RTOL, **result)
+    return result
+
+
+def padded(torch, fn):
+    """``fn`` between PROFILE_PAD_S of host sleep on each side, its device
+    work finished before the second: a profile of it keeps the device
+    events of a call far shorter than the clocks' offset."""
+
+    def call():
+        time.sleep(PROFILE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+    return call
+
+
+def optimizer_gap(torch, model, plain_model, state, plain_state, start) -> dict:
+    """The kernels' optimizer (``model``, ``state``, per leaf) against the
+    plain path's: the leaves whose parameter or moments differ at all, and
+    the worst relative gap: a moment's over its leaf's largest, a
+    parameter's beyond one fp32 spacing at its magnitude (its sum's
+    rounding) over its leaf's largest change since ``start``."""
+    differ, worst = 0, 0.0
+    for (n, p), q in zip(model.named_parameters(), plain_model.parameters()):
+        p, q = p.detach(), q.detach()
+        if all(torch.equal(a, b) for a, b in ((p, q), (state.mu[n], plain_state.mu[n]),
+                                              (state.nu[n], plain_state.nu[n]))):
+            continue
+        differ += 1
+        spacing = torch.nextafter(q.abs(), torch.full_like(q, math.inf)) - q.abs()
+        gaps = [((p - q).abs() - spacing).clamp(min=0).max() / (q - start[n]).abs().max()]
+        gaps += [(a - b).abs().max() / b.abs().max() for a, b in ((state.mu[n], plain_state.mu[n]),
+                                                                   (state.nu[n], plain_state.nu[n]))]
+        worst = max(worst, *(float(g) for g in gaps))
+    return {"leaves_differ": differ, "worst": worst}
 
 
 def phase_examples(torch, port, counters) -> dict:
@@ -3924,6 +4023,7 @@ def launch_counters() -> dict:
     from topo_audio_autoencoder_torch.ops import combine_diag as cd
     from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
     from topo_audio_autoencoder_torch.ops import fused_samplers as fused
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
     from topo_audio_autoencoder_torch.ops import sccn_combine as sc
 
     return {
@@ -3942,6 +4042,7 @@ def launch_counters() -> dict:
         "sccn_combine_copy": cd.combine_copy,
         "sccn_combine_matmul": cd.combine_matmul,
         "sccn_combine_nogelu": cd.combine_nogelu,
+        "multi_tensor_adam": mta.multi_tensor_clip_adam,
     }
 
 
@@ -4047,7 +4148,7 @@ def main() -> int:
         tuner_launches = phase_tuner(torch, port, counters)
         phase_tuner_parity(torch, port, training, counters)
         torch.cuda.empty_cache()
-        phase_flat_adam(torch, port)
+        adam = phase_flat_adam(torch, port)
         example_launches = phase_examples(torch, port, counters)
         torch.cuda.empty_cache()
         phase_dp_philox(torch, fused, hc, n_simplices)
@@ -4064,7 +4165,8 @@ def main() -> int:
     # examples (rows 1-3).
     path_launches = {name: trainer_launches[name] + dp1_launches[name] + dp2_launches[name]
                      + example_launches[name]
-                     for name in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT)}
+                     for name in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT,
+                                  "multi_tensor_adam")}
     for name in ("masked_attention_fwd", "masked_attention_bwd"):
         path_launches[name] += cli_launches[name] + tuner_launches[name]
     print(json.dumps({"kernels": [
@@ -4101,6 +4203,8 @@ def main() -> int:
           for name, line in (("sccn_combine_packed_fwd", "125"), ("sccn_combine_packed_bwd", "166"),
                              ("sccn_combine_copy", "73"), ("sccn_combine_matmul", "80"),
                              ("sccn_combine_nogelu", "92"))),
+        kernel_entry("multi_tensor_adam", csrc + "multi_tensor_adam.cu", None,
+                     path_launches["multi_tensor_adam"], adam),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -766,3 +766,166 @@ def test_two_packed_steps_repeat_bit_for_bit(cuda):
     (ta, ga), (tb, gb) = runs
     assert torch.equal(ta, tb)
     assert [n for n in ga if not torch.equal(ga[n], gb[n])] == []
+
+
+# The optimizer's multi-tensor clip + Adam (csrc/multi_tensor_adam.cu)
+# against the plain per-leaf update on the card. With the norm under the
+# clip the two give the same bits. With the clip engaged (the gradient 100
+# times larger) the norm is summed in another order, a relative difference
+# of ~1e-6 in fp32 over the flagship's 18M elements: each moment is held to
+# ADAM_CLIP_RTOL of its leaf's largest, each parameter to ADAM_CLIP_RTOL of
+# its leaf's largest change plus one fp32 spacing at its own magnitude (the
+# sum p + update rounds to the parameter's spacing, which a change of ~1e-4
+# and a parameter of ~1 put at ~1e-4 of the change).
+ADAM_CLIP_RTOL = 1e-4
+FLAGSHIP = dict(num_vertices=20, num_bands=16, sccn_hidden_dim=64, n_sccn_layers=6)
+
+
+def _adam_leaves(cuda, shapes, seed, norm, names=None):
+    """(grads, params, mu, nu, negated rates) for leaves of ``shapes``:
+    seeded normals, the moments of a run some steps in, the gradient scaled
+    to the global ``norm``; leaves named ``encoder.*`` (if ``names``) take
+    1e-3, the others 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    grads = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    scale = norm / float(torch.sqrt(sum((x * x).sum() for x in grads)))
+    grads = [x * scale for x in grads]
+    params = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    mu = [torch.randn(s, generator=g, device=cuda) * 1e-4 for s in shapes]
+    nu = [torch.rand(s, generator=g, device=cuda) * 1e-8 for s in shapes]
+    names = names or [f"{'encoder' if i % 2 else 'decoder'}.{i}" for i in range(len(shapes))]
+    return grads, params, mu, nu, [-1e-3 if n.startswith("encoder.") else -1e-4 for n in names]
+
+
+def _aligned_like(t):
+    """A copy of ``t`` at the same address modulo 16 bytes."""
+    offset = (t.data_ptr() % 16) // 4
+    copy = torch.empty(t.numel() + 4, device=t.device)[offset:offset + t.numel()].view(t.shape)
+    return copy.copy_(t)
+
+
+def _adam_both(leaves, count=3):
+    """The kernels and the plain version on copies of the same leaves, the
+    update's count ``count``: ((params, mu, nu) of each)."""
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+    from topo_audio_autoencoder_torch.training.train_step import bias_corrections
+
+    grads, params, mu, nu, rates = leaves
+    out = []
+    for fn in (mta.multi_tensor_clip_adam, mta.clip_adam_plain):
+        state = [[_aligned_like(t) for t in ts] for ts in (params, mu, nu)]
+        fn(grads, *state, rates, 10.0, bias_corrections(count))
+        out.append(state)
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_adam_bits(kernel, plain):
+    for what, got, want in zip(("params", "mu", "nu"), kernel, plain):
+        differ = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+        assert not differ, (what, differ[:10], len(differ))
+
+
+@pytest.mark.parametrize("clipped", [False, True], ids=["unclipped", "clipped"])
+def test_multi_tensor_adam_matches_the_per_leaf_update_on_the_flagship(cuda, clipped):
+    from topo_audio_autoencoder_torch.models import AudioAutoencoder
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+
+    model = AudioAutoencoder.create(**FLAGSHIP, num_samples=64000, device=cuda)
+    named = dict(model.named_parameters())
+    assert len(named) == 315
+    leaves = _adam_leaves(cuda, [p.shape for p in named.values()], 1, 100.0 if clipped else 1.0, list(named))
+    before = mta.multi_tensor_clip_adam.launches
+    kernel, plain = _adam_both(leaves)
+    assert mta.multi_tensor_clip_adam.launches == before + 2
+    if not clipped:
+        _assert_adam_bits(kernel, plain)
+        return
+    start = leaves[1]
+    for i in range(len(start)):
+        for what, got, want in zip(("mu", "nu"), kernel[1:], plain[1:]):
+            err = (got[i] - want[i]).abs().max().item()
+            assert err <= ADAM_CLIP_RTOL * want[i].abs().max().item(), (what, i, err)
+        change = (plain[0][i] - start[i]).abs().max().item()
+        spacing = torch.nextafter(plain[0][i].abs(), torch.tensor(float("inf"), device=cuda)) - plain[0][i].abs()
+        assert bool(((kernel[0][i] - plain[0][i]).abs() <= ADAM_CLIP_RTOL * change + spacing).all()), i
+
+
+def test_multi_tensor_adam_repeats_bit_for_bit(cuda):
+    """Two calls on the same clipped inputs: the same bits (the norm's
+    partial sums in a fixed order, no atomics)."""
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+
+    grads, params, mu, nu, rates = _adam_leaves(cuda, [(64, 1000), (4097,), (3, 5), (1,)] * 40, 2, 50.0)
+    runs = []
+    for _ in range(2):
+        state = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+        mta.multi_tensor_clip_adam(grads, *state, rates, 10.0, (0.1, 0.001))
+        runs.append(state)
+    torch.cuda.synchronize()
+    _assert_adam_bits(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("case", ["odd", "misaligned", "many"])
+def test_multi_tensor_adam_odd_leaves(cuda, case):
+    """Leaves of 1 element, of sizes that are not a multiple of 4 or of a
+    chunk, empty ones and all-zero gradients (unused leaves); moments that
+    are views at odd offsets into one vector (flat_groups: the 4-element
+    accesses fall back to single ones); more leaves than one table holds
+    (two tables a pass). Unclipped: the plain version's bits."""
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+
+    shapes = {"odd": [(1,), (3,), (0,), (5, 7), (4095,), (4096,), (4097,), (2, 4099), (1,)],
+              "misaligned": [(1,), (6,), (4097,), (33, 5), (2,)],
+              "many": [(i % 37 + 1,) for i in range(2 * mta.MAX_LEAVES + 3)]}[case]
+    grads, params, mu, nu, rates = _adam_leaves(cuda, shapes, 3, 1.0)
+    grads[0].zero_()
+    grads[-1].zero_()
+    if case == "misaligned":
+        sizes = [t.numel() for t in mu]
+        for moments in (mu, nu):
+            flat = torch.cat([torch.zeros(1, device=cuda)] + [t.reshape(-1) for t in moments])[1:]
+            moments[:] = [v.view(s) for v, s in zip(flat.split(sizes), shapes)]
+    before = mta.multi_tensor_clip_adam.launches
+    kernel, plain = _adam_both((grads, params, mu, nu, rates))
+    assert mta.multi_tensor_clip_adam.launches == before + 2 * len(mta.plan([t.numel() for t in grads]))
+    _assert_adam_bits(kernel, plain)
+
+
+def test_multi_tensor_adam_layouts_agree_bit_for_bit(cuda):
+    """The optimizer per leaf and with flat_groups, both through the
+    kernels, on the flagship's parameters: 3 updates, the second clipped;
+    parameters and moments bit for bit."""
+    from topo_audio_autoencoder_torch.models import AudioAutoencoder
+    from topo_audio_autoencoder_torch.training import make_optimizer
+
+    models = [AudioAutoencoder.create(**FLAGSHIP, num_samples=64000, seed=5, device=cuda) for _ in range(2)]
+    opts = [make_optimizer(accumulate_grad_batches=1, flat_groups=flat) for flat in (False, True)]
+    states = [opt.init(m) for opt, m in zip(opts, models)]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for scale in (1e-3, 1e2, 1e-3):
+        grads = {n: torch.randn(p.shape, generator=g, device=cuda) * scale for n, p in models[0].named_parameters()}
+        for opt, state, m in zip(opts, states, models):
+            opt.update({n: t.clone() for n, t in grads.items()}, state, m)
+    torch.cuda.synchronize()
+    for (n, a), b in zip(models[0].named_parameters(), models[1].parameters()):
+        assert torch.equal(a, b), n
+    per_leaf, flat = states
+    for group, names in opts[1].groups(dict(models[0].named_parameters())).items():
+        for what in ("mu", "nu"):
+            want = torch.cat([getattr(per_leaf, what)[n].reshape(-1) for n in names])
+            assert torch.equal(getattr(flat, what)[group], want), (group, what)
+
+
+def test_multi_tensor_adam_refuses_what_it_does_not_take(cuda):
+    from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+
+    grads, params, mu, nu, rates = _adam_leaves(cuda, [(8, 6), (5,)], 6, 1.0)
+    for bad, what in ((grads[0].t(), "contiguous"), (grads[0].to(torch.bfloat16), "float32"),
+                      (grads[0].reshape(-1)[:40], "sizes")):
+        with pytest.raises(ValueError):
+            mta.multi_tensor_clip_adam([bad, grads[1]], params, mu, nu, rates, 10.0, (0.1, 0.001))
+    with pytest.raises(ValueError):
+        mta.multi_tensor_clip_adam(grads, params, [mu[0].double(), mu[1]], nu, rates, 10.0, (0.1, 0.001))
+    with pytest.raises(ValueError):
+        mta.multi_tensor_clip_adam(grads, [params[0].cpu(), params[1]], mu, nu, rates, 10.0, (0.1, 0.001))

@@ -53,8 +53,9 @@ Spans (``utils.profiling.span``, recorded only under ``torch.profiler``):
 ``taa.train.step`` is the root of each step; inside it ``taa.train.cast``,
 ``taa.train.forward``, ``taa.train.backward`` (autograd and the fp32
 gradients) and ``taa.train.optimizer`` (with ``taa.optimizer.clip`` and
-``taa.optimizer.adam``); ``taa.train.gather`` is the indexed steps' batch
-gather, before the step.
+``taa.optimizer.adam``, the global norm and the update, from
+``ops.multi_tensor_adam``); ``taa.train.gather`` is the indexed steps'
+batch gather, before the step.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from torch import nn
 
 from ..models.autoencoder import AudioAutoencoder
 from ..models.encoder import info_nce_loss, rank_diversity_entropy, vertex_count_penalty
+from ..ops.multi_tensor_adam import ADAM_B1, ADAM_B2, adam_moments, multi_tensor_clip_adam
 from ..ops.samplers import temperature_schedule
 from ..parallel import mean_over_ranks, row_shard, shard_batch
 from ..utils.profiling import span
@@ -89,10 +91,6 @@ class OptState:
     acc: dict = field(default_factory=dict)
 
 
-# optax.adam's defaults.
-ADAM_B1 = 0.9
-ADAM_B2 = 0.999
-ADAM_EPS = 1e-8
 GROUPS = ("encoder", "decoder")
 
 
@@ -118,15 +116,16 @@ def flax_order(params: dict) -> list:
 
 class Optimizer:
     """clip -> {encoder: adam(lr_e), decoder: adam(lr_d)}, accumulated over
-    ``accumulate_grad_batches`` calls. optax's formulas, in fp32.
+    ``accumulate_grad_batches`` calls. optax's formulas, in fp32. Each
+    applied update is one ``ops.multi_tensor_clip_adam`` over every leaf:
+    on the card two kernel launches, on the CPU the plain torch version.
 
-    ``flat_groups``: each group's Adam runs on one flat vector, as the JAX
-    package's ``optax.flatten`` does: the group's clipped gradients are
-    concatenated in ``flax_order``, the moments are one vector a group, and
-    the update reaches the parameters through views of one flat update.
-    The elementwise arithmetic is the per-leaf path's, so both layouts give
-    the same bits. The clip and the accumulation stay per leaf, as optax
-    applies them outside the flatten."""
+    ``flat_groups``: the moments are one flat vector a group, as the JAX
+    package's ``optax.flatten`` keeps them, each group's leaves in
+    ``flax_order``; the update reaches each leaf's moments through its view
+    into the vector. The arithmetic is elementwise, so both layouts give
+    the same bits. The accumulation stays per leaf, as optax applies it
+    outside the flatten."""
 
     def __init__(
         self,
@@ -144,6 +143,7 @@ class Optimizer:
         self.every_k = accumulate_grad_batches
         self.flat_groups = flat_groups
         self._groups = (None, None)
+        self._rates = (None, None)
 
     def learning_rate(self, name: str) -> float:
         return self.group_learning_rate(group_of(name))
@@ -159,6 +159,14 @@ class Optimizer:
             order = flax_order(params)
             self._groups = (names, {g: [n for n in order if group_of(n) == g] for g in GROUPS})
         return self._groups[1]
+
+    def _negated_rates(self, names: list) -> list:
+        """-(learning rate) of each name (kept for the names and rates last
+        asked about)."""
+        key = (tuple(names), self.encoder_lr, self.decoder_lr)
+        if self._rates[0] != key:
+            self._rates = (key, [-self.learning_rate(n) for n in names])
+        return self._rates[1]
 
     def init(self, model: nn.Module) -> OptState:
         params = dict(model.named_parameters())
@@ -207,30 +215,28 @@ class Optimizer:
                     state.mini_step = n + 1
                     return False
                 grads, state.acc, state.mini_step = state.acc, {}, 0
-            self._apply(self._clip(grads), state, dict(model.named_parameters()))
+            self._apply(grads, state, dict(model.named_parameters()))
         return True
 
-    def _clip(self, grads: dict) -> dict:
-        with span("taa.optimizer.clip"):
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-            keep = norm < self.max_norm
-            return {k: torch.where(keep, g, (g / norm) * self.max_norm) for k, g in grads.items()}
-
     def _apply(self, grads: dict, state: OptState, params: dict) -> None:
-        with span("taa.optimizer.adam"):
-            state.count += 1
-            corrections = bias_corrections(state.count)
-            if self.flat_groups:
-                for group, names in self.groups(params).items():
-                    flat = torch.cat([grads[n].reshape(-1) for n in names])
-                    update = adam_update(flat, state, group, corrections) * -self.group_learning_rate(group)
-                    views = update.split([params[n].numel() for n in names])
-                    torch._foreach_add_([params[n] for n in names],
-                                        [v.view_as(params[n]) for v, n in zip(views, names)])
-                return
-            for name, g in grads.items():
-                update = adam_update(g, state, name, corrections)
-                params[name].add_(update * -self.learning_rate(name))
+        """One applied update: the clip and Adam over every leaf at once
+        (``ops.multi_tensor_clip_adam``; with ``flat_groups`` each leaf's
+        moments are its views into the group's vector)."""
+        state.count += 1
+        names = list(grads)
+        if self.flat_groups:
+            moments = {}
+            for group, group_names in self.groups(params).items():
+                sizes = [params[n].numel() for n in group_names]
+                for what in ("mu", "nu"):
+                    views = getattr(state, what)[group].split(sizes)
+                    moments.update({(what, n): v.view_as(params[n]) for n, v in zip(group_names, views)})
+            mu, nu = [moments["mu", n] for n in names], [moments["nu", n] for n in names]
+        else:
+            mu, nu = [state.mu[n] for n in names], [state.nu[n] for n in names]
+        multi_tensor_clip_adam([grads[n] for n in names], [params[n] for n in names], mu, nu,
+                               self._negated_rates(names), self.max_norm,
+                               bias_corrections(state.count))
 
 
 def bias_corrections(count: int) -> tuple[float, float]:
@@ -243,11 +249,8 @@ def adam_update(g: torch.Tensor, state: OptState, name: str, corrections: tuple)
     """optax.scale_by_adam on one leaf (or one group's flat vector): updates
     the moments ``state.mu[name]`` and ``state.nu[name]`` with the gradient
     ``g`` and returns the normalized update (before the learning rate)."""
-    bc1, bc2 = corrections
-    mu = (1.0 - ADAM_B1) * g + ADAM_B1 * state.mu[name]
-    nu = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * state.nu[name]
-    state.mu[name], state.nu[name] = mu, nu
-    return (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+    state.mu[name], state.nu[name], update = adam_moments(g, state.mu[name], state.nu[name], corrections)
+    return update
 
 
 def make_optimizer(
