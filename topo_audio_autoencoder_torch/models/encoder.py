@@ -25,7 +25,9 @@ and in eval.
 Spans (``utils.profiling``): ``taa.encoder.logits`` (conv stacks and
 MLP), ``taa.encoder.sample`` (the relaxation with its seed's draw; the
 hard path's Bernoulli draws), ``taa.encoder.rectify`` (each
-``enforce_constraints`` call) and ``taa.loss.contrastive`` (InfoNCE).
+``enforce_constraints`` call), ``taa.loss.contrastive`` (InfoNCE), and
+``taa.packed.embed`` and ``taa.packed.embed_bwd`` (``_RowGather``'s
+forward and backward, with their CUDA event pairs).
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ class _RowGather(torch.autograd.Function):
 
     @staticmethod
     def forward(table, idx):
-        return table[idx]
+        with span("taa.packed.embed", device=True):
+            return table[idx]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -117,10 +120,11 @@ class _RowGather(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         k, c = idx.shape[-1], g.shape[-1]
-        rows = g.reshape(-1, k, c)
-        index = idx.reshape(-1, k, 1).expand(-1, -1, c)
-        blocks = torch.zeros(rows.shape[0], ctx.rows, c, dtype=g.dtype, device=g.device)
-        return blocks.scatter(1, index, rows).sum(dim=0), None
+        with span("taa.packed.embed_bwd", device=True):
+            rows = g.reshape(-1, k, c)
+            index = idx.reshape(-1, k, 1).expand(-1, -1, c)
+            blocks = torch.zeros(rows.shape[0], ctx.rows, c, dtype=g.dtype, device=g.device)
+            return blocks.scatter(1, index, rows).sum(dim=0), None
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> nn.Conv1d:

@@ -15,6 +15,15 @@ covers its active rows, the packed forward equals the dense masked-static
 one: rectification makes every face of an active simplex active, and the
 mask term sorts every active row before every inactive one. Over capacity
 the lowest-probability rows are dropped.
+
+Spans (``utils.profiling``), each with its CUDA event pair and none inside
+another: ``taa.packed.select`` (``build_packed_operators``: top-K, position
+remapping, one-hot scatter), ``taa.packed.gather`` (``_gather_faces``),
+``taa.packed.gather_bwd`` (``_FaceSum``'s backward) and
+``taa.packed.scatter`` (``_scatter_faces``; the product's backward, which
+autograd issues, lies outside every span). The counter ``packed.builds``
+counts the operator sets built, profiled or not, as
+``optimizer.fused_updates`` counts the updates.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import count, span
 from .builder import membership_matrix
 from .complexes import ComplexTables
 from .rectifier import RectifiedProbs, face_indices
@@ -60,7 +70,8 @@ class PackedOperators(NamedTuple):
     def _gather_faces(self, rank: int, x: torch.Tensor) -> torch.Tensor:
         """``M_rank @ x`` over packed rows: the sum of x over each packed
         simplex's faces. x: [..., lower, C] -> [..., K_rank, C]."""
-        return _FaceSum.apply(x, self.faces[rank], self.face_onehots[rank], self.is_packed(rank - 1))
+        with span("taa.packed.gather", device=True):
+            return _FaceSum.apply(x, self.faces[rank], self.face_onehots[rank], self.is_packed(rank - 1))
 
     def _scatter_faces(self, rank: int, u: torch.Tensor) -> torch.Tensor:
         """``M_rank^T @ u`` over packed rows: each packed simplex's value
@@ -71,7 +82,8 @@ class PackedOperators(NamedTuple):
         atomics on the card, so their fp32 order of summation, and the
         result's last bits, would change from run to run. The product sums
         in a fixed order, and it is small (lower x K_rank per sample)."""
-        return self.face_onehots[rank] @ u
+        with span("taa.packed.scatter", device=True):
+            return self.face_onehots[rank] @ u
 
     # Products with the semantics of SimplicialOperators' (topology.builder).
 
@@ -147,7 +159,8 @@ class _FaceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (onehot,) = ctx.saved_tensors
-        return onehot.to(g.dtype) @ g, None, None, None
+        with span("taa.packed.gather_bwd", device=True):
+            return onehot.to(g.dtype) @ g, None, None, None
 
 
 def build_packed_operators(
@@ -171,53 +184,55 @@ def build_packed_operators(
     among equal keys is unspecified, and nothing that reaches an output
     depends on it.
     """
-    dt = probs.edges.dtype
-    device = probs.edges.device
-    ranks = tuple(probs.ranks)
-    if masks is None:
-        masks = tuple((p > 0).to(dt) for p in ranks)
-    caps = [None if not c else min(int(c), s) for c, s in zip(capacities, tables.sizes)]
-    for r in range(3):
-        if caps[r] is not None and caps[r + 1] is None:
-            raise ValueError(
-                f"capacities must be upward-closed: rank {r} is packed "
-                f"but rank {r + 1} is dense ({capacities!r})"
-            )
-    face_tables = (None, *face_indices(tables, device))  # edges, tri_edges, tet_tris
-    idx, faces, onehots = [None] * 4, [None] * 4, [None] * 4
-    pprobs, pmasks = list(ranks), list(masks)
-    for r in range(4):
-        if caps[r] is None:
-            continue
-        key = select_key[r] if select_key is not None else masks[r] + ranks[r]
-        ix = torch.topk(key, caps[r], dim=-1).indices  # [..., K], key-descending
-        idx[r] = ix
-        pprobs[r] = torch.gather(ranks[r], -1, ix)
-        pmasks[r] = torch.gather(masks[r], -1, ix)
-        if r == 0:
-            continue
-        f = face_tables[r][ix]  # [..., K, r+1] full lower ids
-        lower = tables.sizes[r - 1]
-        if idx[r - 1] is not None:
-            # Full lower ids -> packed positions; a row dropped from the
-            # lower rank's capacity maps to the sentinel K_lower.
-            kl = caps[r - 1]
-            pos = torch.full((*ix.shape[:-1], lower), kl, dtype=torch.long, device=device)
-            pos.scatter_(-1, idx[r - 1], torch.arange(kl, device=device).expand_as(idx[r - 1]))
-            f = torch.gather(pos, -1, f.reshape(*f.shape[:-2], -1)).reshape(f.shape)
-            lower = kl
-        faces[r] = f
-        onehot = torch.zeros((*ix.shape[:-1], lower + 1, caps[r]), dtype=dt, device=device)
-        onehot.scatter_(-2, f.transpose(-1, -2), 1.0)
-        onehots[r] = onehot[..., :lower, :]  # the sentinel row dropped
-    memberships = tuple(
-        membership_matrix(tables, r, dt, device) if caps[r] is None else None for r in (1, 2, 3)
-    )
-    return PackedOperators(
-        probs=tuple(pprobs),
-        masks=tuple(pmasks),
-        idx=tuple(idx),
-        faces=tuple(faces),
-        face_onehots=tuple(onehots),
-        memberships=memberships,
-    )
+    count("packed.builds")
+    with span("taa.packed.select", device=True):
+        dt = probs.edges.dtype
+        device = probs.edges.device
+        ranks = tuple(probs.ranks)
+        if masks is None:
+            masks = tuple((p > 0).to(dt) for p in ranks)
+        caps = [None if not c else min(int(c), s) for c, s in zip(capacities, tables.sizes)]
+        for r in range(3):
+            if caps[r] is not None and caps[r + 1] is None:
+                raise ValueError(
+                    f"capacities must be upward-closed: rank {r} is packed "
+                    f"but rank {r + 1} is dense ({capacities!r})"
+                )
+        face_tables = (None, *face_indices(tables, device))  # edges, tri_edges, tet_tris
+        idx, faces, onehots = [None] * 4, [None] * 4, [None] * 4
+        pprobs, pmasks = list(ranks), list(masks)
+        for r in range(4):
+            if caps[r] is None:
+                continue
+            key = select_key[r] if select_key is not None else masks[r] + ranks[r]
+            ix = torch.topk(key, caps[r], dim=-1).indices  # [..., K], key-descending
+            idx[r] = ix
+            pprobs[r] = torch.gather(ranks[r], -1, ix)
+            pmasks[r] = torch.gather(masks[r], -1, ix)
+            if r == 0:
+                continue
+            f = face_tables[r][ix]  # [..., K, r+1] full lower ids
+            lower = tables.sizes[r - 1]
+            if idx[r - 1] is not None:
+                # Full lower ids -> packed positions; a row dropped from the
+                # lower rank's capacity maps to the sentinel K_lower.
+                kl = caps[r - 1]
+                pos = torch.full((*ix.shape[:-1], lower), kl, dtype=torch.long, device=device)
+                pos.scatter_(-1, idx[r - 1], torch.arange(kl, device=device).expand_as(idx[r - 1]))
+                f = torch.gather(pos, -1, f.reshape(*f.shape[:-2], -1)).reshape(f.shape)
+                lower = kl
+            faces[r] = f
+            onehot = torch.zeros((*ix.shape[:-1], lower + 1, caps[r]), dtype=dt, device=device)
+            onehot.scatter_(-2, f.transpose(-1, -2), 1.0)
+            onehots[r] = onehot[..., :lower, :]  # the sentinel row dropped
+        memberships = tuple(
+            membership_matrix(tables, r, dt, device) if caps[r] is None else None for r in (1, 2, 3)
+        )
+        return PackedOperators(
+            probs=tuple(pprobs),
+            masks=tuple(pmasks),
+            idx=tuple(idx),
+            faces=tuple(faces),
+            face_onehots=tuple(onehots),
+            memberships=memberships,
+        )
