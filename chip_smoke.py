@@ -51,6 +51,11 @@ the kernels are built for sm_90a). Phases, one JSON line each:
             kernel against its plain version and the times of the forward
             rungs (copy, matmul, nogelu, full, packed, plain) and the
             gradient rungs (packed, full, plain autograd).
+   pqmf_synthesis  row 12, the PQMF synthesis kernel and its adjoint at the
+            train step's shape (128 x 4,000 frames of 16 bands, 413 taps),
+            fp32 and bf16: against cuDNN's conv_transpose1d and conv1d and
+            the fp64 host synthesis (no larger error than cuDNN's), two calls
+            bit for bit, times beside the bounds, registers and spills.
 3. serve    the flagship-width codec (n=20, 16 bands, C=64, 6 SCCN
             layers, seeded random weights): a warm-up request and three
             timed ones of 8 clips x 64,000 samples, each encode -> pack ->
@@ -448,6 +453,13 @@ ADAM_CLIP_RTOL = 1e-4
 # Its bytes an element: the norm reads the gradient, the update reads the
 # gradient, the parameter and two moments and writes the last three.
 ADAM_BYTES_PER_ELEMENT = 4 + 7 * 4
+# pqmf_synthesis (row 12): the train step's synthesis, 128 clips of 4,000
+# frames of 16 bands, 413 taps; the clips held against the fp64 host
+# synthesis; the kernels against cuDNN in fp32 (TF32 off: the two differ in
+# their order of summation only), relative L2.
+PQMF_SHAPE = (128, 4000, 16)
+PQMF_FP64_CLIPS = 4
+TOL_PQMF_FP32 = 1e-5
 # examples: torch_train_synthetic's clips (B = 16: 2 steps), the n=20 wire.
 EXAMPLE_CLIPS = 32
 EXAMPLE_WIRE_BYTES = 775
@@ -544,6 +556,11 @@ DP2_JOIN_S = 600  # the children's deadline
 
 # The kernels a Gumbel step launches once each, beside the attention's.
 GUMBEL_EXPECT = {"binary_gumbel": 1, "binary_gumbel_bwd": 1}
+# Row 12: the synthesis once a decode, its adjoint once a backward.
+PQMF_KERNELS = ("pqmf_synthesis", "pqmf_synthesis_adjoint")
+PQMF_PER_STEP = dict.fromkeys(PQMF_KERNELS, 1)
+# Once a vmapped grid step, over every combo: rows 1, 2 and 12 both ways.
+GRID_STEP_KERNELS = ("masked_attention_fwd", "masked_attention_bwd", *PQMF_KERNELS)
 # The Hard Concrete kernels, forward and backward (rows 4 and 5).
 HC_KERNELS = ("hard_concrete", "hard_concrete_bwd", "hard_concrete_learned", "hard_concrete_learned_bwd")
 COMBINE_KERNELS = ("sccn_combine_fwd", "sccn_combine_bwd", "sccn_combine_packed_fwd",
@@ -1028,7 +1045,9 @@ def phase_serve(torch, port, counters) -> tuple:
     counts = {name: c.launches for name, c in counters.items()}  # just after the serve path
     launches = counts["masked_attention_fwd"]
     check(launches == decoder_calls, f"attention launches {launches} != decoder calls {decoder_calls}")
-    check(all(n == 0 for name, n in counts.items() if name != "masked_attention_fwd"),
+    check(counts["pqmf_synthesis"] == decoder_calls,
+          f"synthesis launches {counts['pqmf_synthesis']} != decoder calls {decoder_calls}")
+    check(all(n == 0 for name, n in counts.items() if name not in ("masked_attention_fwd", "pqmf_synthesis")),
           f"the eval path launched training kernels: {counts}")
     enc = statistics.median(t["encode_ms"] for t in timed)
     dec = statistics.median(t["decode_ms"] for t in timed)
@@ -1191,6 +1210,7 @@ def phase_train(torch, port, counters) -> tuple:
     check(launches["masked_attention_bwd"] >= steps, f"attention bwd launches {launches} for {steps} steps")
     check(all(launches[k] == 0 for k in HC_KERNELS), f"the Gumbel step launched a Hard Concrete kernel: {launches}")
     check(all(launches[k] == 0 for k in COMBINE_KERNELS), f"the unfused step launched a combine kernel: {launches}")
+    check(all(launches[k] == steps for k in PQMF_KERNELS), f"synthesis launches {launches} for {steps} steps")
     step_ms = statistics.median(times[1:])
 
     bf16_opt = port.make_optimizer(accumulate_grad_batches=1)
@@ -1198,7 +1218,8 @@ def phase_train(torch, port, counters) -> tuple:
     _, bf16_times, bf16_components, bf16_launches = timed_steps(
         torch, bf16_step, port.create_train_state(model, bf16_opt), batches[:BF16_STEPS], counters)
     check(bf16_launches["binary_gumbel"] == BF16_STEPS and bf16_launches["binary_gumbel_bwd"] == BF16_STEPS
-          and all(bf16_launches[k] == 0 for k in HC_KERNELS), f"bf16 step sampler launches {bf16_launches}")
+          and all(bf16_launches[k] == 0 for k in HC_KERNELS)
+          and all(bf16_launches[k] == BF16_STEPS for k in PQMF_KERNELS), f"bf16 step launches {bf16_launches}")
     check(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in model.parameters()),
           "master parameters not finite fp32 after the bf16 steps")
     emit(
@@ -1604,7 +1625,7 @@ def phase_train_model(torch, port, counters, phase, options, b, g, steps, weight
     state, times, components, launches = timed_steps(torch, step, state, batches, counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     n = len(batches)
-    for name, per_step in {"masked_attention_fwd": 1, "masked_attention_bwd": 1, **expect}.items():
+    for name, per_step in {"masked_attention_fwd": 1, "masked_attention_bwd": 1, **PQMF_PER_STEP, **expect}.items():
         check(launches[name] == per_step * n, f"{phase}: {name} launched {launches[name]} times in {n} steps")
     for name in ("binary_gumbel", "binary_gumbel_bwd", *HC_KERNELS, *COMBINE_KERNELS):
         if name not in expect:
@@ -1671,7 +1692,8 @@ def phase_encode_hc(torch, port, counters) -> None:
     torch.cuda.synchronize()
     request_ms = (time.perf_counter() - t0) * 1e3
     request_launches = {name: c.launches for name, c in counters.items()}  # just after
-    check(request_launches["masked_attention_fwd"] == 1 and sum(request_launches.values()) == 1,
+    check(request_launches["masked_attention_fwd"] == request_launches["pqmf_synthesis"] == 1
+          and sum(request_launches.values()) == 2,
           f"codec request launches {request_launches}")
     check(np.array_equal(port.pack_latent(back), wire), "wire bytes do not round-trip")
     for a, b in zip(latent.ranks, back.ranks):
@@ -1912,14 +1934,14 @@ def sass_census(sass: str) -> dict:
     return census
 
 
-def resource_usage(listing: str) -> dict:
-    """Per kernel instance of a cuobjdump -res-usage listing: registers,
-    stack and local-memory bytes per thread."""
+def resource_usage(listing: str, instance=combine_instance) -> dict:
+    """Per kernel instance (``instance`` of its mangled name) of a cuobjdump
+    -res-usage listing: registers, stack and local-memory bytes per thread."""
     usage, name = {}, None
     for line in listing.splitlines():
         header = re.search(r"Function (\S+?):", line)
         if header:
-            name = combine_instance(header.group(1))
+            name = instance(header.group(1))
             continue
         found = {key: re.search(rf"\b{key}:(\d+)", line) for key in ("REG", "STACK", "LOCAL")}
         if name is not None and all(found.values()):
@@ -1929,23 +1951,37 @@ def resource_usage(listing: str) -> dict:
     return usage
 
 
+def cuobjdump_listing(name: str, flag: str) -> str:
+    """cuobjdump's ``flag`` listing of the library built from csrc/<name>.cu."""
+    from topo_audio_autoencoder_torch import cuda_build
+
+    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), flag, str(cuda_build.library_path(name))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+# An instance of csrc/pqmf_synthesis.cu's kernel in a mangled name: its type,
+# outputs a thread and direction.
+PQMF_INSTANCE = re.compile(r"synthesis_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
+
+
+def pqmf_instance(mangled: str):
+    found = PQMF_INSTANCE.search(mangled)
+    if found is None:
+        return None
+    elt, outputs, adjoint = found.groups()
+    direction = ("forward", "adjoint")[int(adjoint)]
+    return f"synthesis_kernel<{'float32' if elt == 'f' else 'bfloat16'}, R={outputs}, {direction}>"
+
+
 def phase_combine_build() -> None:
     """csrc/sccn_combine.cu as built, read back from the library with
     cuobjdump, so that a library built by an earlier run is read too: each
     kernel instance's registers, stack and local memory (-res-usage) and
     its SASS census (-sass). Fails if any instance spills: local memory in
     its resource usage, or an STL or LDL in its SASS."""
-    from topo_audio_autoencoder_torch import cuda_build
-
-    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
-    library = str(cuda_build.library_path("sccn_combine"))
-
-    def listing(flag: str) -> str:
-        return subprocess.run([str(cuobjdump), flag, library], capture_output=True, text=True, timeout=120,
-                              check=True).stdout
-
-    usage = resource_usage(listing("-res-usage"))
-    census = sass_census(listing("-sass"))
+    usage = resource_usage(cuobjdump_listing("sccn_combine", "-res-usage"))
+    census = sass_census(cuobjdump_listing("sccn_combine", "-sass"))
     check(bool(census) and usage.keys() == census.keys(),
           f"cuobjdump: resource usage for {sorted(usage)}, SASS for {sorted(census)}")
     spills = {k: dict(local_bytes=usage[k]["local_bytes"], stl=c["stl"], ldl=c["ldl"])
@@ -2253,7 +2289,7 @@ def phase_train_fused(torch, port, training, counters) -> dict:
     n = len(batches)
     for name in ("sccn_combine_fwd", "sccn_combine_bwd"):
         check(launches[name] == FUSED_RANK_LAYERS * n, f"train_fused: {name} launched {launches[name]} in {n} steps")
-    for name in ("binary_gumbel", "binary_gumbel_bwd", "masked_attention_fwd", "masked_attention_bwd"):
+    for name in ("binary_gumbel", "binary_gumbel_bwd", "masked_attention_fwd", "masked_attention_bwd", *PQMF_KERNELS):
         check(launches[name] == n, f"train_fused: {name} launched {launches[name]} in {n} steps")
     for name in (*HC_KERNELS, *COMBINE_KERNELS[2:]):
         check(launches[name] == 0, f"train_fused: {name} launched {launches[name]} times")
@@ -2386,7 +2422,8 @@ def phase_serve_packed(torch, port, counters) -> None:
                               decode_ms=(t3 - t2) * 1e3, active_max=active,
                               active_mean=[float(r.sum(dim=-1).mean()) for r in latent.ranks]))
     counts = {name: c.launches for name, c in counters.items()}  # just after the serve path
-    check(counts["masked_attention_fwd"] == REQUESTS + 1 and sum(counts.values()) == REQUESTS + 1,
+    check(counts["masked_attention_fwd"] == counts["pqmf_synthesis"] == REQUESTS + 1
+          and sum(counts.values()) == 2 * (REQUESTS + 1),
           f"serve_packed: launches {counts} for {REQUESTS + 1} decodes")
     cpu = port.AudioAutoencoder.create(**PACKED, **PACKED_OPTIONS, num_samples=NUM_SAMPLES, seed=SEED + 1,
                                        device="cpu")
@@ -2439,7 +2476,8 @@ def phase_baseline2(torch, port, counters) -> None:
         loss = float(total)
         times.append((time.perf_counter() - t0) * 1e3)
     counts = {name: c.launches for name, c in counters.items()}  # just after
-    check(counts["masked_attention_fwd"] == BASELINE2_CALLS + 1 and sum(counts.values()) == BASELINE2_CALLS + 1,
+    check(counts["masked_attention_fwd"] == counts["pqmf_synthesis"] == BASELINE2_CALLS + 1
+          and sum(counts.values()) == 2 * (BASELINE2_CALLS + 1),
           f"baseline2: launches {counts}")
     keys = sum(int(m.shape[-1]) for m in out.encoder_output.masks[1:])
     check(keys == BASELINE2_KEYS and model.tables.sizes == (20, 190, 0, 0), f"baseline2: {keys} attention keys")
@@ -2622,7 +2660,7 @@ def phase_data_train(torch, port, data, counters, train: np.ndarray, held_out: n
     check(len(times) == steps, f"{len(times)} data-fed steps ran, not {steps}")
     check(all(b.shape == (TRAIN_B, TRAIN_G, 1, NUM_SAMPLES) and b.device.type == "cuda"
               and b.dtype == torch.float32 for b in seen), f"batches {[tuple(b.shape) for b in seen]}")
-    for name in ("binary_gumbel", "binary_gumbel_bwd", "masked_attention_fwd"):
+    for name in ("binary_gumbel", "binary_gumbel_bwd", "masked_attention_fwd", *PQMF_KERNELS):
         check(launches[name] == steps, f"data: {name} launched {launches[name]} times in {steps} steps")
     check(launches["masked_attention_bwd"] >= steps, f"data: attention bwd launches {launches} for {steps} steps")
     check(all(launches[k] == 0 for k in (*HC_KERNELS, *COMBINE_KERNELS)), f"data: other kernels launched {launches}")
@@ -2797,11 +2835,12 @@ def main_args(d: Path, **over) -> list:
 
 
 def trainer_launch_check(what: str, launches: dict, steps: int, eval_calls: int) -> None:
-    """Rows 2, 3 and 3's backward once a trainer step; row 1 once a step
-    and once an eval forward (each validate batch, each dump); no other
-    sampler or combine kernel."""
+    """Rows 2, 3, 3's backward and 12's adjoint once a trainer step; rows
+    1 and 12 once a step and once an eval forward (each validate batch,
+    each dump); no other sampler or combine kernel."""
     want = {"masked_attention_fwd": steps + eval_calls, "masked_attention_bwd": steps,
-            "binary_gumbel": steps, "binary_gumbel_bwd": steps}
+            "binary_gumbel": steps, "binary_gumbel_bwd": steps,
+            "pqmf_synthesis": steps + eval_calls, "pqmf_synthesis_adjoint": steps}
     for name, n in want.items():
         check(launches[name] == n, f"{what}: {name} launched {launches[name]} times, not {n} "
                                    f"({steps} steps, {eval_calls} eval forwards)")
@@ -3065,8 +3104,8 @@ def phase_codec_cli(torch, port, counters) -> dict:
                     for k in total:
                         total[k] += run[f"{cmd}_launches"][k]
                 check(sum(run["encode_launches"].values()) == 0, f"codec_cli {name}: encode launched {run}")
-                check(run["decode_launches"]["masked_attention_fwd"] == 1
-                      and sum(run["decode_launches"].values()) == 1, f"codec_cli {name}: decode launches {run}")
+                check(run["decode_launches"]["masked_attention_fwd"] == run["decode_launches"]["pqmf_synthesis"] == 1
+                      and sum(run["decode_launches"].values()) == 2, f"codec_cli {name}: decode launches {run}")
                 runs.append(run)
             bits, header = codec_cli.read_tac(tac)
             n = config["num_vertices"]
@@ -3176,10 +3215,11 @@ def phase_tuner(torch, port, counters) -> dict:
     val_batches = TUNE_VAL // batch
     check(len(step_ms) == steps, f"tuner: {len(step_ms)} grid steps, not {steps}")
     for i, delta in enumerate(probe.deltas):
-        check(delta["masked_attention_fwd"] == 1 and delta["masked_attention_bwd"] == 1
-              and sum(delta.values()) == 2, f"tuner: grid step {i} launched {delta}")
-    check(launches["masked_attention_fwd"] == steps + val_batches and launches["masked_attention_bwd"] == steps
-          and sum(launches.values()) == 2 * steps + val_batches, f"tuner: launches {launches}")
+        check(all(delta[k] == 1 for k in GRID_STEP_KERNELS) and sum(delta.values()) == 4,
+              f"tuner: grid step {i} launched {delta}")
+    check(launches["masked_attention_fwd"] == launches["pqmf_synthesis"] == steps + val_batches
+          and launches["masked_attention_bwd"] == launches["pqmf_synthesis_adjoint"] == steps
+          and sum(launches.values()) == 4 * steps + 2 * val_batches, f"tuner: launches {launches}")
     check(best in [dict(zip(("encoder_lr", "decoder_lr", "complexity_penalty"), c))
                    for c in itertools.product(*TUNE_GRID.values())], f"tuner: best {best}")
     check(trainer.metrics.best_params == best and (Path(tmp.name) / "best_tuning" / "state.pt").exists(),
@@ -3351,8 +3391,8 @@ def phase_tuner_parity(torch, port, training, counters) -> None:
         check(c["surrogate_value_rel_err"] <= PARITY_LOSS_RTOL and c["surrogate_leaf_max_err"] <= SURROGATE_TOL,
               f"tuner_parity combo {i}: surrogate {c}")
     for delta in deltas:
-        check(delta["masked_attention_fwd"] == 1 and delta["masked_attention_bwd"] == 1
-              and sum(delta.values()) == 2, f"tuner_parity: a grid step launched {delta}")
+        check(all(delta[k] == 1 for k in GRID_STEP_KERNELS) and sum(delta.values()) == 4,
+              f"tuner_parity: a grid step launched {delta}")
 
 
 def phase_dp_philox(torch, fused, hc, n_simplices: int) -> dict:
@@ -3737,7 +3777,8 @@ def phase_dp2(torch, port, training, counters) -> dict:
     check(acc_err <= PARITY_GRAD_REL_L2 or not conditioned, f"dp2: accumulator rel L2 {acc_err} (nudge floor {floor})")
     check(all(o["mini_step"] == DP2_STEPS for o in (ref, *outs)), "dp2: the accumulator's micro-step count")
     for r, o in enumerate(outs):
-        want_launches = {n: DP2_STEPS for n in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT)}
+        want_launches = {n: DP2_STEPS for n in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT,
+                                                *PQMF_KERNELS)}
         got = {k: v for k, v in o["launches"].items() if v}
         check(got == want_launches, f"dp2 rank {r}: launched {got}, not {want_launches}")
     return {n: sum(o["launches"][n] for o in outs) for n in outs[0]["launches"]}
@@ -3797,7 +3838,8 @@ def phase_packed_repeat(torch, port, training, counters) -> None:
     check(a["total"] == b["total"] and a["components"] == b["components"], "packed_repeat: the losses differ")
     check(not grads_differ, f"packed_repeat: {len(grads_differ)} gradient leaves differ: {grads_differ[:5]}")
     check(not params_differ, f"packed_repeat: {len(params_differ)} parameters differ after the steps")
-    for name, per_step in {"masked_attention_fwd": 1, "masked_attention_bwd": 1, **GUMBEL_EXPECT}.items():
+    for name, per_step in {"masked_attention_fwd": 1, "masked_attention_bwd": 1, **GUMBEL_EXPECT,
+                           **PQMF_PER_STEP}.items():
         check(a["launches"][name] == per_step * len(batches),
               f"packed_repeat: {name} launched {a['launches'][name]} times in {len(batches)} steps")
 
@@ -3902,6 +3944,114 @@ def phase_flat_adam(torch, port) -> dict:
     return result
 
 
+def phase_pqmf_synthesis(torch, built) -> tuple:
+    """Row 12: the PQMF synthesis kernel and its adjoint
+    (csrc/pqmf_synthesis.cu) at the train step's shape (PQMF_SHAPE), fp32
+    and bf16: against cuDNN (the inverse as it was: conv_transpose1d, the
+    crop and the scale; its adjoint conv1d on the padded gradient) over the
+    whole batch: fp32 within TOL_PQMF_FP32 relative L2 of cuDNN, two calls
+    bit for bit; on the first PQMF_FP64_CLIPS clips, against the fp64 host
+    synthesis (_np_synthesis) and its adjoint (M * _np_analysis), where each
+    kernel's max and mean error must be no larger than cuDNN's (the plain
+    versions' errors are reported beside them). Times (CUDA events, median
+    of 30 behind a spin kernel) of each kernel, the plain versions and
+    cuDNN, beside the bounds (bytes: input and output once; operations: 2 N
+    FLOP an output sample, on the fp32 CUDA cores and on the bf16 tensor
+    cores; the bound is the larger of the bytes and the operations at the
+    input type's rate); each kernel instance's registers and local memory
+    (none may spill) and the build's ptxas report. Returns the bf16
+    forward's and adjoint's results for the kernels line."""
+    import torch.nn.functional as F
+
+    from topo_audio_autoencoder_torch.ops import pqmf
+
+    b, length, m = PQMF_SHAPE
+    bank = pqmf.PQMF(100.0, m).to(DEVICE)
+    n = bank.taps
+    pad = n // 2
+    offsets, shift = pqmf.synthesis_offsets(m, n)
+    k = PQMF_FP64_CLIPS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 80)
+    flops = 2.0 * b * length * m * n
+    runs, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        sub = torch.randn(b, length, m, generator=gen, device=DEVICE).to(dtype)
+        gy = torch.randn(b, length * m, generator=gen, device=DEVICE).to(dtype)
+        z, gy_frames = sub.transpose(1, 2), gy.view(b, length, m)
+        w = bank.filters.to(dtype)
+        table = bank.kernel_table(dtype, DEVICE)
+
+        def fwd():
+            return bank.inverse(z)
+
+        def bwd():
+            return pqmf.synthesis_adjoint(gy_frames, table, shift)
+
+        def library_fwd():
+            return F.conv_transpose1d(z, w, stride=m)[..., pad:pad + length * m] * float(m)
+
+        def library_bwd():
+            return F.conv1d(F.pad(gy[:, None], (pad, n - pad - m)), w, stride=m) * float(m)
+
+        y, y_again, gz, gz_again = fwd(), fwd(), bwd(), bwd()
+        want_y, want_gz = library_fwd(), library_bwd().transpose(1, 2)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_again) and torch.equal(gz, gz_again),
+              f"pqmf_synthesis {name}: two calls on the same inputs differ")
+        check(y.shape == (b, 1, length * m) and gz.shape == (b, length, m) and y.dtype == gz.dtype == dtype,
+              f"pqmf_synthesis {name}: shapes {tuple(y.shape)}, {tuple(gz.shape)}")
+        hk = bank.filters.reshape(m, n).to(dtype).double().cpu().numpy()
+        exact_y = torch.from_numpy(np.stack([pqmf._np_synthesis(c, hk, m) for c in z[:k].double().cpu().numpy()]))
+        exact_gz = torch.from_numpy(np.stack([m * pqmf._np_analysis(g, hk, m).T
+                                              for g in gy[:k].double().cpu().numpy()]))
+        plain_y = pqmf.synthesis_plain(sub[:k], table, shift).reshape(k, length * m)
+        plain_gz = pqmf.synthesis_adjoint_plain(gy_frames[:k], table, shift)
+        errors = {}
+        for what, got, want, plain, exact in (("fwd", y[:, 0], want_y[:, 0], plain_y, exact_y),
+                                              ("bwd", gz, want_gz, plain_gz, exact_gz)):
+            kernel_err = (got[:k].double().cpu() - exact).abs()
+            library_err = (want[:k].double().cpu() - exact).abs()
+            plain_err = (plain.double().cpu() - exact).abs()
+            errors[what] = dict(kernel_max=float(kernel_err.max()), kernel_mean=float(kernel_err.mean()),
+                                library_max=float(library_err.max()), library_mean=float(library_err.mean()),
+                                plain_max=float(plain_err.max()), plain_mean=float(plain_err.mean()),
+                                rel_l2_to_library=float((got.double() - want.double()).norm() / want.double().norm()))
+        for what, e in errors.items():
+            check(e["kernel_max"] <= e["library_max"] and e["kernel_mean"] <= e["library_mean"],
+                  f"pqmf_synthesis {name} {what}: error against fp64 {e}, above cuDNN's")
+            if dtype == torch.float32:
+                check(e["rel_l2_to_library"] <= TOL_PQMF_FP32,
+                      f"pqmf_synthesis {name} {what}: {e['rel_l2_to_library']} from cuDNN")
+        del y_again, gz_again, want_y, want_gz, plain_y, plain_gz
+        elt = sub.element_size()
+        nbytes = 2.0 * b * length * m * elt + table.numel() * 4
+        bounds = dict(bytes_ms=nbytes / HBM_BPS * 1e3, fp32_cores_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                      bf16_tensor_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3)
+        ops_ms = bounds["fp32_cores_ms" if dtype == torch.float32 else "bf16_tensor_ms"]
+        bound_ms, bound_by = max((bounds["bytes_ms"], "bytes"), (ops_ms, "operations"))
+        times = dict(fwd_ms=time_ms(fwd), bwd_ms=time_ms(bwd),
+                     plain_fwd_ms=time_ms(lambda: pqmf.synthesis_plain(sub, table, shift), reps=10, warmup=2),
+                     plain_bwd_ms=time_ms(lambda: pqmf.synthesis_adjoint_plain(gy_frames, table, shift), reps=10,
+                                          warmup=2),
+                     library_fwd_ms=time_ms(library_fwd), library_bwd_ms=time_ms(library_bwd))
+        runs[name] = dict(errors=errors, bounds=bounds, **times)
+        rows[name] = {
+            what: dict(max_abs_err=errors[what]["kernel_max"], ms=times[f"{what}_ms"],
+                       plain_ms=times[f"plain_{what}_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=times[f"library_{what}_ms"])
+            for what in ("fwd", "bwd")}
+        del sub, gy, z, gy_frames, y, gz
+    usage = resource_usage(cuobjdump_listing("pqmf_synthesis", "-res-usage"), pqmf_instance)
+    spills = {name: u for name, u in usage.items() if u["local_bytes"]}
+    check(bool(usage) and not spills, f"pqmf_synthesis kernels: {len(usage)} instances read, spills {spills}")
+    report = built.get("pqmf_synthesis", {}).get("ptxas", "")
+    emit("pqmf_synthesis", shape=dict(batch=b, frames=length, bands=m, taps=n, offsets=offsets, shift=shift),
+         flops=flops, fp64_clips=k, runs=runs, usage=usage,
+         ptxas=[line.strip() for line in report.splitlines() if "registers" in line or "spill" in line])
+    return rows["bfloat16"]["fwd"], rows["bfloat16"]["bwd"]
+
+
 def padded(torch, fn):
     """``fn`` between PROFILE_PAD_S of host sleep on each side, its device
     work finished before the second: a profile of it keeps the device
@@ -3996,7 +4146,8 @@ def phase_examples(torch, port, counters) -> dict:
             launches = {name: c.launches for name, c in counters.items()}
             check(out["wire_bytes"] == wire and out["finite"] and tuple(out["waveform"].shape) == (1, 1, NUM_SAMPLES),
                   f"examples: torch_codec_roundtrip {what}: {out['wire_bytes']} bytes, finite {out['finite']}")
-            check(launches["masked_attention_fwd"] == 1 and sum(launches.values()) == 1,
+            check(launches["masked_attention_fwd"] == launches["pqmf_synthesis"] == 1
+                  and sum(launches.values()) == 2,
                   f"examples: torch_codec_roundtrip {what}: launches {launches}")
             results[f"torch_codec_roundtrip_{what}"] = dict(
                 wall_s=time.perf_counter() - t0, bits=out["bits"], wire_bytes=out["wire_bytes"],
@@ -4024,6 +4175,7 @@ def launch_counters() -> dict:
     from topo_audio_autoencoder_torch.ops import fused_hard_concrete as hc
     from topo_audio_autoencoder_torch.ops import fused_samplers as fused
     from topo_audio_autoencoder_torch.ops import multi_tensor_adam as mta
+    from topo_audio_autoencoder_torch.ops import pqmf
     from topo_audio_autoencoder_torch.ops import sccn_combine as sc
 
     return {
@@ -4043,6 +4195,8 @@ def launch_counters() -> dict:
         "sccn_combine_matmul": cd.combine_matmul,
         "sccn_combine_nogelu": cd.combine_nogelu,
         "multi_tensor_adam": mta.multi_tensor_clip_adam,
+        "pqmf_synthesis": pqmf.synthesis,
+        "pqmf_synthesis_adjoint": pqmf.synthesis_adjoint,
     }
 
 
@@ -4090,6 +4244,7 @@ def main() -> int:
         phase_sampler_launch(torch, fused, hc, n_simplices)
         combine = phase_kernel_combine(torch, sc)
         diag, diag_launches = phase_combine_diag(torch, sc, cd, counters)
+        pqmf_fwd, pqmf_bwd = phase_pqmf_synthesis(torch, built)
         torch.cuda.empty_cache()
         model, codec = phase_serve(torch, port, counters)
         phase_main_attention(torch, attention, model, codec)
@@ -4160,14 +4315,14 @@ def main() -> int:
     emit("profiler", **PROFILES)
     csrc = "topo_audio_autoencoder_torch/csrc/"
     # The main paths, each counted from zero: trainer_main, the codec CLI
-    # and the vmapped tuner (rows 1 and 2), data parallelism's Trainer
+    # and the vmapped tuner (rows 1, 2 and 12), data parallelism's Trainer
     # over NCCL (dp1) and the two gloo ranks' steps (dp2), and the two
-    # examples (rows 1-3).
+    # examples (rows 1-3 and 12).
     path_launches = {name: trainer_launches[name] + dp1_launches[name] + dp2_launches[name]
                      + example_launches[name]
                      for name in ("masked_attention_fwd", "masked_attention_bwd", *GUMBEL_EXPECT,
-                                  "multi_tensor_adam")}
-    for name in ("masked_attention_fwd", "masked_attention_bwd"):
+                                  "multi_tensor_adam", *PQMF_KERNELS)}
+    for name in ("masked_attention_fwd", "masked_attention_bwd", *PQMF_KERNELS):
         path_launches[name] += cli_launches[name] + tuner_launches[name]
     print(json.dumps({"kernels": [
         kernel_entry("masked_attention_fwd", csrc + "masked_attention_fwd.cu",
@@ -4205,6 +4360,9 @@ def main() -> int:
                              ("sccn_combine_nogelu", "92"))),
         kernel_entry("multi_tensor_adam", csrc + "multi_tensor_adam.cu", None,
                      path_launches["multi_tensor_adam"], adam),
+        kernel_entry("pqmf_synthesis", csrc + "pqmf_synthesis.cu", None, path_launches["pqmf_synthesis"], pqmf_fwd),
+        kernel_entry("pqmf_synthesis_adjoint", csrc + "pqmf_synthesis.cu", None,
+                     path_launches["pqmf_synthesis_adjoint"], pqmf_bwd),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = (
     "masked_attention_fwd", "masked_attention_bwd", "binary_gumbel", "hard_concrete", "sccn_combine",
-    "multi_tensor_adam",
+    "multi_tensor_adam", "pqmf_synthesis",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
